@@ -10,9 +10,12 @@ Phases, one JSON line each:
                `-Xptxas -v` register / shared-memory / spill report;
   2. kernels — every kernel against its plain PyTorch version on the same
                CUDA tensors, exact: the main path's own inputs plus a
-               whole-type probe window of >= 2^21 rows, totals past
-               capacity, tied join keys, an empty side, int32 and int64
-               probe keys; times from CUDA events;
+               whole-type probe window of >= 2^21 rows, the multiway
+               calls of one grounded star and of one fan-out star whose
+               Member tail has >= 2^21 rows, totals past capacity, tied
+               keys, an empty side or intersection, an all-invalid left
+               side, a star of 18 tails, int32 and int64 probe keys;
+               times from CUDA events;
   3. slice   — the main path through the public API: a FlyBase-shaped
                knowledge base (SimplePatternMiner.ipynb cell 0, cut by
                --scale) in DistributedAtomSpace(backend="tensor") on the
@@ -25,7 +28,27 @@ Phases, one JSON line each:
                sampled grounded / Not answers on LARGE against the host
                algebra (the "memory" backend); the LARGE triangle count
                against numpy; the triangle's answer set on the SMALL
-               configuration against the host algebra.
+               configuration against the host algebra.  The queries
+               are planned by the cost planner (the default config);
+  4. planned — the planner's path, from a fresh executor: 32 grounded
+               stars Member($V1, p1) and Member($V1, p2) and
+               Interacts(g, $V1), 8 fan-out stars Member($V1, p) and
+               Member($V1, $P2) and Interacts($V1, $V2), and the 32
+               grounded queries, under use_planner / use_multiway "auto":
+               routes, planner counters, host fetches and p50 per family,
+               multiway launches (the phase fails without one).  Every
+               answer is checked against numpy, and again with the
+               multiway step off (stars), the planner off (grounded) and,
+               for a family auto routed none of, the multiway step on;
+  5. count_batch — 256 grounded queries counted in one count_batch call
+               after a warm call: per-query ms, groups, lanes after dedup,
+               host fetches; every count against numpy.  Then a check
+               list on the card: 64 grounded queries (48 with non-empty
+               answers) and 16 reseed shapes Member(g1, $V3) and
+               Member(g2, $V3) and Interacts(g3, $V2), half of whose pairs
+               share no process, so the exact second pass must run; every
+               count against numpy, three non-zero ones and a re-seeded
+               one against count_matches.
 
 Then a line {"kernels": [...]} with each kernel's route, source, the TPU
 kernel it replaces, launches on the main path, error against the plain
@@ -69,6 +92,13 @@ TPU_KERNELS = {
     "index_join": ("das_tpu_torch/kernels/csrc/index_join.cu", "das_tpu/kernels/join.py:342"),
     "join_tables": ("das_tpu_torch/kernels/csrc/join_tables.cu", "das_tpu/kernels/join.py:234"),
     "anti_join": ("das_tpu_torch/kernels/csrc/anti_join.cu", "das_tpu/kernels/join.py:399"),
+    "multiway": ("das_tpu_torch/kernels/csrc/multiway.cu", "das_tpu/kernels/multiway.py:190"),
+}
+
+#: kernel name -> wrapper attribute of das_tpu_torch.kernels
+WRAPPERS = {
+    "probe": "probe_term_table", "index_join": "index_join", "join_tables": "join_tables",
+    "anti_join": "anti_join", "multiway": "multiway_join",
 }
 
 
@@ -95,6 +125,22 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def queued_host_ms(fn):
+    """(host ms of fn(), ms until the card is done) with fn queued behind a
+    sleep kernel of ~10^8 cycles: the first is far below the second when
+    fn only enqueues work and never waits on the stream."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(100_000_000)
+    fn()
+    host = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return host, (time.perf_counter() - t0) * 1e3
 
 
 def max_abs_err(want, got) -> int:
@@ -200,6 +246,47 @@ class HostKB:
                     out.add((v2, p))
         return out
 
+    def grounded_star(self, g, p1, p2):
+        """{(V1,)} of the grounded star."""
+        both = set(self.members(p1).tolist()) & set(self.members(p2).tolist())
+        return {(v,) for v in set(self.partners(g).tolist()) & both}
+
+    def fanout_star(self, p):
+        """{(V1, P2, V2)} of the fan-out star."""
+        return {(v1, p2, v2) for v1 in set(self.members(p).tolist())
+                for p2 in self.procs(v1).tolist() for v2 in self.partners(v1).tolist()}
+
+    def reseed_count(self, g1, g2, g3):
+        """|answer| of And(Member(g1, V3), Member(g2, V3), Interacts(g3, V2))
+        under the reference fold: a positive term with no rows empties the
+        answer; a first join with no shared process empties the accumulator,
+        and the Interacts term then re-seeds it."""
+        shared = set(self.procs(g1).tolist()) & set(self.procs(g2).tolist())
+        n3 = len(self.partners(g3))
+        if not len(self.procs(g1)) or not len(self.procs(g2)):
+            return 0
+        return max(len(shared), 1) * n3
+
+    def reseed_triples(self, seed, n):
+        """n (g1, g2, g3) gene rows: half the pairs share a process, half
+        share none; g3 always has an interaction partner."""
+        rng = random.Random(seed)
+        with_procs = sorted(set(self.member[:, 0].tolist()))
+        partnered = sorted(set(self.interacts[:, 0].tolist()))
+        out = []
+        while len(out) < n:
+            g1 = rng.choice(with_procs)
+            procs = self.procs(g1).tolist()
+            if len(out) % 2 == 0:
+                g2 = rng.choice(self.members(rng.choice(procs)).tolist())
+            else:
+                g2 = rng.choice(with_procs)
+                if set(procs) & set(self.procs(g2).tolist()):
+                    continue
+            if g2 != g1:
+                out.append((g1, g2, rng.choice(partnered)))
+        return out
+
     def nonempty_genes(self):
         """Gene rows whose grounded answer is non-empty: an interaction
         partner shares a process."""
@@ -233,6 +320,41 @@ def grounded_query(gene_name, negate=False):
     ])
 
 
+def grounded_star_query(gene_name, p1, p2):
+    """Member($V1, p1) and Member($V1, p2) and Interacts(g, $V1)."""
+    from das_tpu_torch.query.ast import And, Link, Node, Variable
+
+    return And([
+        Link("Member", [Variable("V1"), Node("BiologicalProcess", p1)], True),
+        Link("Member", [Variable("V1"), Node("BiologicalProcess", p2)], True),
+        Link("Interacts", [Node("Gene", gene_name), Variable("V1")], True),
+    ])
+
+
+def reseed_query(g1, g2, g3):
+    """Member(g1, $V3) and Member(g2, $V3) and Interacts(g3, $V2): when g1
+    and g2 share no process the reference fold re-seeds on the last term."""
+    from das_tpu_torch.query.ast import And, Link, Node, Variable
+
+    return And([
+        Link("Member", [Node("Gene", g1), Variable("V3")], True),
+        Link("Member", [Node("Gene", g2), Variable("V3")], True),
+        Link("Interacts", [Node("Gene", g3), Variable("V2")], True),
+    ])
+
+
+def fanout_star_query(p):
+    """Member($V1, p) and Member($V1, $P2) and Interacts($V1, $V2): its
+    tails are the whole Member and Interacts types."""
+    from das_tpu_torch.query.ast import And, Link, Node, Variable
+
+    return And([
+        Link("Member", [Variable("V1"), Node("BiologicalProcess", p)], True),
+        Link("Member", [Variable("V1"), Variable("P2")], True),
+        Link("Interacts", [Variable("V1"), Variable("V2")], True),
+    ])
+
+
 def triangle_query():
     from das_tpu_torch.query.ast import And, Link, Variable
 
@@ -250,6 +372,13 @@ def answer_rows(das, query):
     return matched, {(row[a.mapping["V2"]], row[a.mapping["V3"]]) for a in answer.assignments}
 
 
+def answer_tuples(das, query, names):
+    """(matched, {tuple of the rows bound to `names`})."""
+    matched, answer = das.query_answer(query)
+    row = das.db.fin.row_of_hex
+    return bool(matched), {tuple(row[a.mapping[n]] for n in names) for a in answer.assignments}
+
+
 def answer_set(das, query):
     matched, answer = das.query_answer(query)
     return bool(matched), {frozenset(a.mapping.items()) for a in answer.assignments}
@@ -264,55 +393,54 @@ def bytes_bound_ms(n_bytes: float, n_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def main_path_inputs(das, gene_name):
-    """The exact kernel calls the fused executor makes for one grounded
-    query and its Not variant, at the capacities it settled on."""
+def record_inputs(run):
+    """Call `run()` with every kernel wrapper recording the arguments of
+    its first call: the exact inputs the executor gives each kernel."""
     from das_tpu_torch import kernels
-    from das_tpu_torch.query import compiler
-    from das_tpu_torch.query.fused import fold_join_meta, get_executor
 
+    calls, saved = {}, {}
+    for name, attr in WRAPPERS.items():
+        saved[attr] = fn = getattr(kernels, attr)
+
+        def rec(*a, _name=name, _fn=fn, **kw):
+            calls.setdefault(_name, (a, kw))
+            return _fn(*a, **kw)
+
+        setattr(kernels, attr, rec)
+    try:
+        run()
+    finally:
+        for attr, fn in saved.items():
+            setattr(kernels, attr, fn)
+    return calls
+
+
+def main_path_inputs(das, gene_name, star, fanout):
+    """The kernel calls of one grounded query and its Not variant, and the
+    multiway calls of one grounded star and one fan-out star, at the
+    capacities their executions settled on (each query runs once first)."""
     calls = {}
-    ex = get_executor(das.db)
-    for negate in (False, True):
-        q = grounded_query(gene_name, negate)
-        das.query_answer(q)                      # settles and learns the capacities
-        plans = compiler.plan_query(das.db, q)
-        job = ex._exec_job(plans)
-        positives, _neg, _names, join_meta, anti_meta = fold_join_meta(job.sigs)
-        tables = {}
-        for i, t in enumerate(job.sigs):
-            if i in job.index_right:
-                continue
-            ks, perm, targets, _tid = job.arrays[i]
-            args = (ks, perm, targets, job.keys[i], job.fvals[i], job.term_caps[i])
-            kw = dict(var_cols=t.var_cols, eq_pairs=t.eq_pairs, extra_fixed=t.extra_fixed)
-            calls.setdefault("probe", (args, kw))
-            vals, mask, _ = kernels.probe_term_table_plain(*args, **kw)
-            tables[i] = (vals, mask)
-        acc = tables[positives[0]]
-        for t, i in enumerate(positives[1:]):
-            pairs, extra = join_meta[t]
-            jc = job.join_caps[t]
-            if job.index_joins[t] >= 0:
-                ks, perm, targets, _tid = job.arrays[i]
-                args = (*acc, ks, perm, targets, int(job.keys[i]), pairs,
-                        job.sigs[i].var_cols, extra, jc)
-                calls.setdefault("index_join", (args, {}))
-                out = kernels.index_join_plain(*args)
-            else:
-                args = (*acc, *tables[i], pairs, extra, jc)
-                calls.setdefault("join_tables", (args, {}))
-                out = kernels.join_tables_plain(*args)
-            acc = out[:2]
-        for i, pairs in anti_meta:
-            calls.setdefault("anti_join", ((*acc, *tables[i], pairs), {}))
+    for q in (grounded_query(gene_name), grounded_query(gene_name, True)):
+        das.query_answer(q)
+        for name, call in record_inputs(lambda: das.query_answer(q)).items():
+            calls.setdefault(name, call)
+    cfg = das.db.config
+    mode, cfg.use_multiway = cfg.use_multiway, "on"   # the multiway route, whatever auto says
+    try:
+        for key, q in (("multiway", star), ("multiway_whole_type", fanout)):
+            das.query_answer(q)
+            calls[key] = record_inputs(lambda: das.query_answer(q))["multiway"]
+    finally:
+        cfg.use_multiway = mode
     return calls
 
 
 def work_of(name, args, kw, out):
     """(bytes, operations) the call's data needs: every input it must read
     once, every output written once; a probe or index join reads only the
-    posting-index window its keys select."""
+    posting-index window its keys select; a multiway join reads every
+    mask, the v column of the valid rows, and the other columns only of
+    the rows it emits."""
 
     def nb(t):
         return t.numel() * t.element_size()
@@ -341,6 +469,19 @@ def work_of(name, args, kw, out):
         ops = (lv.shape[0] + rv.shape[0]) * 8 + 8 * rv.shape[0] * 12 \
             + lv.shape[0] * 4 * math.log2(n_r) + cap * (2 * math.log2(max(lv.shape[0], 2)) + 8)
         return n_bytes, ops
+    if name == "multiway":
+        lv, lm, tails, _vcol0, meta, cap = args
+        n_l = int(lm.sum())
+        n_out = int(out[1].sum())
+        n_valid = [int(m.sum()) for _v, m in tails]
+        n_bytes = nb(lm) + n_l * 4 + n_out * 4 * (lv.shape[1] - 1) \
+            + sum(nb(m) + n * 4 + n_out * 4 * len(extra)
+                  for (_v, m), n, (_c, extra) in zip(tails, n_valid, meta)) \
+            + nb(out[0]) + nb(out[1]) + nb(out[2])
+        ops = n_l * 8 + sum(
+            n * (8 + 8 * 12) + n_l * 4 * math.log2(max(n, 2)) for n in n_valid
+        ) + min(int(out[2][-1]), cap) * (2 * math.log2(max(n_l, 2)) + 8 * len(tails))
+        return n_bytes, ops
     lv, lm, rv, rm = args[:4]
     n_r = max(rv.shape[0], 2)
     n_bytes = nb(lv) + nb(lm) + nb(rv) + nb(rm) + nb(out)
@@ -348,9 +489,10 @@ def work_of(name, args, kw, out):
     return n_bytes, ops
 
 
-def phase_kernels(das, gene_name, iters):
+def phase_kernels(das, gene_name, star, fanout, iters):
     """Every kernel against its plain version, exact.  Returns the timing
-    rows of the main-path case of each kernel."""
+    rows of the main-path case of each kernel (for the multiway kernel the
+    grounded star's, the planned phase's main case)."""
     import torch
 
     from das_tpu_torch import kernels
@@ -361,8 +503,9 @@ def phase_kernels(das, gene_name, iters):
         "index_join": (kernels.index_join, kernels.index_join_plain),
         "join_tables": (kernels.join_tables, kernels.join_tables_plain),
         "anti_join": (kernels.anti_join, kernels.anti_join_plain),
+        "multiway": (kernels.multiway_join, kernels.multiway_join_plain),
     }
-    main = main_path_inputs(das, gene_name)
+    main = main_path_inputs(das, gene_name, star, fanout)
     missing = sorted(set(wrappers) - set(main))
     if missing:
         raise AssertionError(f"the main path gave no inputs to {missing}")
@@ -383,6 +526,10 @@ def phase_kernels(das, gene_name, iters):
     iargs = main["index_join"][0]
     jargs = main["join_tables"][0]
     aargs = main["anti_join"][0]
+    margs = main["multiway"][0]
+    wargs = main["multiway_whole_type"][0]
+    if wargs[2][0][0].shape[0] < n_member:
+        raise AssertionError("the fan-out star's Member tail is not the whole Member type")
     cols = dict(var_cols=(0, 1), eq_pairs=(), extra_fixed=())
     # the V3 column of real Member rows: ~members-per-process ties per key
     procs = member.targets[: 1 << 16, 1:2].contiguous()
@@ -408,6 +555,18 @@ def phase_kernels(das, gene_name, iters):
         ("anti_join", "tied keys", (left, lmask, procs, ones, ((1, 0),)), {}),
         ("anti_join", "empty right", (*aargs[:2], empty_v[:, :aargs[2].shape[1]], empty_m,
                                        aargs[4]), {}),
+        ("multiway", "main path (grounded star)", margs, {}),
+        ("multiway", "whole-type fan-out star", wargs, {}),
+        ("multiway", "tied keys, total > cap",
+         (left, lmask, [(procs, ones), (procs[:4096], ones[:4096])], 1,
+          ((0, ()), (0, ())), 1024), {}),
+        ("multiway", "empty intersection",
+         (left, lmask, [(procs + (1 << 30), ones)], 1, ((0, ()),), 4096), {}),
+        ("multiway", "all-invalid left",
+         (left, torch.zeros_like(lmask), [(procs, ones)], 1, ((0, ()),), 4096), {}),
+        ("multiway", "18 tails in one launch",
+         (left[:512], lmask[:512], [(procs[:512], ones[:512])] * 18, 1, ((0, ()),) * 18,
+          1024), {}),
     ]
     rows = []
     for name, case, args, kw in cases:
@@ -418,7 +577,11 @@ def phase_kernels(das, gene_name, iters):
         err = max_abs_err(want, got)
         if err != 0:
             raise AssertionError(f"{name} [{case}] differs from its plain version: {err}")
-        if name in ("probe", "index_join", "join_tables"):
+        if name == "multiway":
+            total = int(got[2][-1])
+            if case.startswith("tied") and total <= args[-1]:
+                raise AssertionError(f"multiway [{case}]: total {total} is not past capacity")
+        elif name in ("probe", "index_join", "join_tables"):
             total = int(got[2])
         else:
             total = int(got.sum())
@@ -435,6 +598,13 @@ def phase_kernels(das, gene_name, iters):
             row["library_ms"] = cuda_ms(lambda: torch.isin(key_l, key_r), iters)
         if name == "probe":
             row["window"] = min(int(got[2]), args[-1])
+            row["cap"] = args[-1]
+        if name == "multiway":
+            if case.startswith("main path"):
+                row["queued_host_ms"], row["queued_card_ms"] = \
+                    queued_host_ms(lambda: kernel(*args, **kw))
+            row["left_rows"] = args[0].shape[0]
+            row["tail_rows"] = [v.shape[0] for v, _m in args[2]]
             row["cap"] = args[-1]
         rows.append(row)
     emit({"phase": "kernels", "cases": rows})
@@ -487,7 +657,7 @@ def phase_slice(args, das, data, genes, large, small):
     n_queries = 2 * len(chosen)
     if routes["host"] != 0 or routes["fused"] + routes["staged"] != n_queries:
         raise AssertionError(f"a slice query left the device route: {routes}")
-    idle = [k for k, v in launches.items() if v == 0]
+    idle = [k for k in ("probe", "index_join", "join_tables", "anti_join") if launches[k] == 0]
     if idle:
         raise AssertionError(f"kernels never launched on the main path: {idle}")
 
@@ -543,6 +713,212 @@ def _gene_row(das, gene_name):
     return das.db.fin.row_of_hex[das.db.get_node_handle("Gene", gene_name)]
 
 
+def _p50(times):
+    return sorted(times)[len(times) // 2]
+
+
+def star_families(args, data, genes, host, das):
+    """The planned phase's query families: (query, bound names, numpy
+    answer) per query.  Grounded stars pick p1 and p2 among the processes
+    of one interaction partner of g, so every answer is non-empty."""
+    rng = random.Random(args.seed + 1)
+
+    def name(r):
+        return data.nodes[host.fin.hex_of_row[r]].name
+
+    stars = []
+    for g in rng.sample(sorted(set(host.interacts[:, 0].tolist())), 32):
+        x = int(host.partners(g)[0])
+        p1, p2 = sorted(host.procs(x).tolist())[:2]
+        stars.append((g, p1, p2))
+    fan = rng.sample(sorted(set(host.member[:, 1].tolist())), 8)
+    chosen = pick_genes(host, [data.nodes[h].name for h in genes], args.seed)
+    return {
+        "grounded_star": [(grounded_star_query(name(g), name(p1), name(p2)), ("V1",),
+                           host.grounded_star(g, p1, p2)) for g, p1, p2 in stars],
+        "fanout_star": [(fanout_star_query(name(p)), ("V1", "P2", "V2"), host.fanout_star(p))
+                        for p in fan],
+        "grounded": [(grounded_query(g), ("V2", "V3"), host.grounded(_gene_row(das, g), False))
+                     for g in chosen],
+    }
+
+
+def run_family(das, queries):
+    """(answers, host ms per query, host fetches) of one family."""
+    from das_tpu_torch.query.fused import FETCH_COUNTS
+
+    f0 = FETCH_COUNTS["n"]
+    answers, times = [], []
+    for q, names, _want in queries:
+        t0 = time.perf_counter()
+        answers.append(answer_tuples(das, q, names))
+        times.append((time.perf_counter() - t0) * 1e3)
+    return answers, times, FETCH_COUNTS["n"] - f0
+
+
+def phase_planned(das, families):
+    """The planned path: grounded stars, fan-out stars and phase slice's grounded
+    queries under the default config (use_planner / use_multiway "auto"),
+    from a fresh executor.  Counters zeroed just before, read just after."""
+    import torch
+
+    from das_tpu_torch import planner
+    from das_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from das_tpu_torch.query import compiler
+
+    cfg = das.db.config
+    das.db.dev._fused_executor = None
+    torch.cuda.synchronize()
+    compiler.reset_route_counts()
+    planner.reset_planner_counts()
+    reset_launch_counts()
+    lines = {}
+    for fam, queries in families.items():
+        r0 = dict(compiler.ROUTE_COUNTS)
+        programs = planner.PLANNER_COUNTS["programs"]
+        answers, times, fetches = run_family(das, queries)
+        lines[fam] = {
+            "queries": len(queries), "p50_ms": _p50(times), "host_fetches": fetches,
+            "rounds": planner.PLANNER_COUNTS["programs"] - programs,
+            "multiway": compiler.ROUTE_COUNTS["fused_multiway"] - r0["fused_multiway"],
+            "staged": compiler.ROUTE_COUNTS["staged"] - r0["staged"],
+            "nonempty": sum(bool(a[1]) for a in answers), "answers": answers,
+        }
+    torch.cuda.synchronize()
+    launches = dict(LAUNCH_COUNTS)
+    routes = dict(compiler.ROUTE_COUNTS)
+    snap = planner.snapshot()
+    if launches["multiway"] == 0:
+        raise AssertionError("the multiway kernel never launched on the planned path")
+    if routes["host"] != 0:
+        raise AssertionError(f"a planned query left the device route: {routes}")
+    # the planner's host cost: plan_conjunction alone, statistics warm
+    for fam, queries in families.items():
+        times = []
+        for q, _names, _want in queries:
+            plans = compiler.plan_query(das.db, q)
+            t0 = time.perf_counter()
+            planner.plan_conjunction(das.db, plans)
+            times.append((time.perf_counter() - t0) * 1e3)
+        lines[fam]["plan_p50_ms"] = _p50(times)
+
+    # -- checks, and the other arms on the same store ---------------------------
+    for fam, line in lines.items():
+        for (q, names, want), (matched, got) in zip(families[fam], line.pop("answers")):
+            if got != want or matched != bool(want):
+                raise AssertionError(f"{fam} answer differs from the numpy reference")
+        if fam != "grounded" and line["nonempty"] != line["queries"]:
+            raise AssertionError(f"{fam}: an answer is empty")
+        arms = {"multiway_off": ("auto", "off")}
+        if line["multiway"] == 0:
+            line["note"] = "auto routed none of this family to multiway at this scale"
+            arms["multiway_on"] = ("auto", "on")
+        if fam == "grounded":
+            arms["planner_off"] = ("off", "off")
+        for arm, (use_planner, use_multiway) in arms.items():
+            cfg.use_planner, cfg.use_multiway = use_planner, use_multiway
+            das.db.dev._fused_executor = None
+            try:
+                r0 = compiler.ROUTE_COUNTS["fused_multiway"]
+                answers, times, fetches = run_family(das, families[fam])
+            finally:
+                cfg.use_planner, cfg.use_multiway = "auto", "auto"
+                das.db.dev._fused_executor = None
+            if answers != [(bool(w), w) for _q, _n, w in families[fam]]:
+                raise AssertionError(f"{fam} under {arm} differs from the numpy reference")
+            line[arm] = {"p50_ms": _p50(times), "host_fetches": fetches,
+                         "multiway": compiler.ROUTE_COUNTS["fused_multiway"] - r0}
+    emit({"phase": "planned", "families": lines, "routes": routes, "planner": snap,
+          "launches": launches})
+    return launches
+
+
+def phase_count_batch(args, das, data, genes, host, width=256):
+    """bench.py batched_per_query: `width` grounded queries counted in one
+    count_batch call after one warm call (the result cache cleared between,
+    so the timed call does the device work).  Counters zeroed just before,
+    read just after.  Then a check list, counted on the card and held
+    against numpy: 64 grounded queries, 48 of them with non-empty answers,
+    and 16 reseed shapes, whose undecided entries only the exact second
+    pass answers."""
+    import torch
+
+    from das_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from das_tpu_torch.query import compiler
+    from das_tpu_torch.query.fused import FETCH_COUNTS, get_executor
+
+    gene_names = [data.nodes[h].name for h in genes]
+    names = gene_names[:width]
+    plans = [compiler.plan_query(das.db, grounded_query(g)) for g in names]
+    ex = get_executor(das.db)
+    warm = ex.count_batch(plans)
+    ex.results.clear()
+    b0 = dict(ex.batch_counts)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    f0 = FETCH_COUNTS["n"]
+    t0 = time.perf_counter()
+    counts = ex.count_batch(plans)
+    ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    launches = dict(LAUNCH_COUNTS)
+    fetches = FETCH_COUNTS["n"] - f0
+    batch = {k: ex.batch_counts[k] - b0[k] for k in b0}
+    f0 = FETCH_COUNTS["n"]
+    t0 = time.perf_counter()
+    cached = ex.count_batch(plans)
+    cached_ms = (time.perf_counter() - t0) * 1e3
+    if FETCH_COUNTS["n"] != f0 or cached != counts or warm != counts:
+        raise AssertionError("count_batch: the cached or warm call disagrees")
+    if None in counts:
+        raise AssertionError("count_batch left a grounded query undecided")
+    for g, c in zip(names, counts):
+        if c != len(host.grounded(_gene_row(das, g), False)):
+            raise AssertionError(f"count_batch: {g} differs from the numpy reference")
+    idle = [k for k in ("probe", "index_join", "join_tables") if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on the count_batch path: {idle}")
+
+    # -- the check list ---------------------------------------------------------
+    def name(r):
+        return data.nodes[host.fin.hex_of_row[r]].name
+
+    check = pick_genes(host, gene_names, args.seed + 2, n=64, n_nonempty=48)
+    triples = host.reseed_triples(args.seed + 3, 16)
+    queries = [grounded_query(g) for g in check] + \
+        [reseed_query(*map(name, t)) for t in triples]
+    want = [len(host.grounded(_gene_row(das, g), False)) for g in check] + \
+        [host.reseed_count(*t) for t in triples]
+    ex.results.clear()
+    b0 = dict(ex.batch_counts)
+    reset_launch_counts()
+    got = ex.count_batch([compiler.plan_query(das.db, q) for q in queries])
+    torch.cuda.synchronize()
+    check_launches = dict(LAUNCH_COUNTS)
+    exact_groups = ex.batch_counts["exact_groups"] - b0["exact_groups"]
+    wrong = [i for i, (w, c) in enumerate(zip(want, got)) if w != c]
+    if wrong:
+        raise AssertionError(f"count_batch check list differs from numpy at {wrong}: "
+                             f"{[(want[i], got[i]) for i in wrong]}")
+    if exact_groups == 0:
+        raise AssertionError("no entry of the check list reached the exact second pass")
+    nonzero = [i for i in range(len(check)) if got[i]]
+    if len(nonzero) < 48:
+        raise AssertionError("the check list has fewer than 48 non-zero grounded counts")
+    disjoint = len(check) + 1           # the first reseed triple that shares no process
+    for i in nonzero[:: len(nonzero) // 3][:3] + [disjoint]:
+        if compiler.count_matches(das.db, queries[i]) != got[i]:
+            raise AssertionError(f"count_batch differs from count_matches at entry {i}")
+    emit({"phase": "count_batch", "queries": width, "ms": ms, "per_query_ms": ms / width,
+          "host_fetches": fetches, **batch, "cached_call_ms": cached_ms,
+          "nonzero": sum(c > 0 for c in counts), "launches": launches,
+          "check": {"entries": len(queries), "nonzero": sum(c > 0 for c in got),
+                    "reseeds_re_seeded": sum(not (set(host.procs(a).tolist())
+                                                  & set(host.procs(b).tolist()))
+                                             for a, b, _c in triples),
+                    "exact_groups": exact_groups, "launches": check_launches}})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=0.1,
@@ -588,8 +964,12 @@ def main(argv=None) -> int:
     host = HostKB(data, genes)
     gene_names = [data.nodes[h].name for h in genes]
     main_gene = pick_genes(host, gene_names, args.seed, n=1, n_nonempty=1)[0]
-    timing = phase_kernels(das, main_gene, args.iters)
+    families = star_families(args, data, genes, host, das)
+    timing = phase_kernels(das, main_gene, families["grounded_star"][0][0],
+                           families["fanout_star"][0][0], args.iters)
     launches = phase_slice(args, das, data, genes, (ldas, ldata, lgenes), small)
+    launches["multiway"] = phase_planned(das, families)["multiway"]
+    phase_count_batch(args, das, data, genes, host)
 
     kernels_line = []
     for name, (source, replaces) in TPU_KERNELS.items():

@@ -1,10 +1,19 @@
 """Configuration of the PyTorch port.
 
 A trimmed copy of `das_tpu.core.config.DasConfig`: only the fields this
-port reads.  There are no routing knobs — a CUDA tensor goes to the
-hand-written kernel and a CPU tensor to its plain PyTorch version — and
-no planner or multiway switches (the port runs the greedy join order and
-the binary join chain)."""
+port reads, with the JAX package's defaults.  There is no kernel routing
+knob — a CUDA tensor goes to the hand-written kernel and a CPU tensor to
+its plain PyTorch version.  The two planner switches are read from the
+config only (no environment variable):
+
+  * `use_planner` — the cost-based planner (das_tpu_torch/planner/) picks
+    the join order and the capacity seeds of every step; "auto"/"on" = on,
+    "off" = the greedy order with the blind seeds;
+  * `use_multiway` — the planner may fuse a star prefix into one k-way
+    multiway step (kernels/multiway.py): "auto" = when the byte model says
+    it beats the binary chain (>= 3 clauses), "on" = every eligible prefix
+    (>= 2 clauses), "off" = the binary chain only.  Routed by the planner,
+    so `use_planner="off"` turns it off too."""
 
 from __future__ import annotations
 
@@ -19,3 +28,5 @@ class DasConfig:
     initial_result_capacity: int = 1 << 14
     max_result_capacity: int = 1 << 24
     pattern_black_list: List[str] = field(default_factory=list)
+    use_planner: str = "auto"
+    use_multiway: str = "auto"

@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels of the query path, and their wrappers.
 
-Four kernels replace the four TPU kernels of `das_tpu/kernels/` that an
+Five kernels replace the five TPU kernels of `das_tpu/kernels/` that an
 ordered conjunctive query runs:
 
   * `probe_term_table` — probe -> gather -> verify -> term table
@@ -10,7 +10,10 @@ ordered conjunctive query runs:
   * `join_tables` — sort-merge join of two materialized tables
     (csrc/join_tables.cu; join_tables_impl);
   * `anti_join` — the negation membership filter (csrc/anti_join.cu;
-    anti_join_impl).
+    anti_join_impl);
+  * `multiway_join` — the k-way star join the planner routes star
+    prefixes to (csrc/multiway.cu; das_tpu/kernels/multiway.py
+    multiway_join_impl).
 
 There is no routing switch: a CUDA tensor goes to the kernel (built at
 first use, see launch.py) or the call raises; a CPU tensor goes to the
@@ -25,6 +28,7 @@ from das_tpu_torch.kernels.join import (  # noqa: F401
     join_tables_plain,
 )
 from das_tpu_torch.kernels.launch import LAUNCH_COUNTS, reset_launch_counts  # noqa: F401
+from das_tpu_torch.kernels.multiway import multiway_join, multiway_join_plain  # noqa: F401
 from das_tpu_torch.kernels.probe import (  # noqa: F401
     probe_term_table,
     probe_term_table_plain,

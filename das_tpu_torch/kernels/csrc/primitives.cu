@@ -39,54 +39,56 @@ void das_mix(const int32_t* vals, int64_t n, int k, const uint8_t* valid, DasCol
 // inclusive scan of one SCAN_TILE tile per block; the tile's total goes to
 // block_sums[blockIdx.x].  Each thread sums SCAN_ITEMS consecutive items,
 // the per-thread totals are scanned with warp shuffles, then written back.
+// The sums run in uint64 so they wrap as XLA's int64 sums do (signed
+// overflow is undefined in C++).
 __global__ void scan_tile_kernel(const int64_t* in, int64_t* out, int64_t n,
                                  int64_t* block_sums) {
-  __shared__ int64_t warp_tot[DAS_THREADS / 32];
+  __shared__ uint64_t warp_tot[DAS_THREADS / 32];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int64_t base = (int64_t)blockIdx.x * SCAN_TILE + (int64_t)tid * SCAN_ITEMS;
-  int64_t v[SCAN_ITEMS];
-  int64_t run = 0;
+  uint64_t v[SCAN_ITEMS];
+  uint64_t run = 0;
 #pragma unroll
   for (int i = 0; i < SCAN_ITEMS; ++i) {
     int64_t idx = base + i;
-    run += idx < n ? in[idx] : 0;
+    run += idx < n ? (uint64_t)in[idx] : 0ull;
     v[i] = run;
   }
-  int64_t s = run;
+  uint64_t s = run;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    int64_t t = __shfl_up_sync(0xffffffffu, s, o);
+    uint64_t t = __shfl_up_sync(0xffffffffu, s, o);
     if (lane >= o) s += t;
   }
   if (lane == 31) warp_tot[warp] = s;
   __syncthreads();
   if (warp == 0) {
-    int64_t w = lane < DAS_THREADS / 32 ? warp_tot[lane] : 0;
+    uint64_t w = lane < DAS_THREADS / 32 ? warp_tot[lane] : 0ull;
 #pragma unroll
     for (int o = 1; o < DAS_THREADS / 32; o <<= 1) {
-      int64_t t = __shfl_up_sync(0xffffffffu, w, o);
+      uint64_t t = __shfl_up_sync(0xffffffffu, w, o);
       if (lane >= o) w += t;
     }
     if (lane < DAS_THREADS / 32) warp_tot[lane] = w;
   }
   __syncthreads();
-  const int64_t excl = s - run + (warp > 0 ? warp_tot[warp - 1] : 0);
+  const uint64_t excl = s - run + (warp > 0 ? warp_tot[warp - 1] : 0ull);
 #pragma unroll
   for (int i = 0; i < SCAN_ITEMS; ++i) {
     int64_t idx = base + i;
-    if (idx < n) out[idx] = v[i] + excl;
+    if (idx < n) out[idx] = (int64_t)(v[i] + excl);
   }
-  if (tid == DAS_THREADS - 1) block_sums[blockIdx.x] = excl + run;
+  if (tid == DAS_THREADS - 1) block_sums[blockIdx.x] = (int64_t)(excl + run);
 }
 
 // adds the scanned sum of all earlier tiles to every item of tile b > 0
 __global__ void scan_add_kernel(int64_t* out, int64_t n, const int64_t* scanned_sums) {
   if (blockIdx.x == 0) return;
-  const int64_t add = scanned_sums[blockIdx.x - 1];
+  const uint64_t add = (uint64_t)scanned_sums[blockIdx.x - 1];
   const int64_t base = (int64_t)blockIdx.x * SCAN_TILE;
   for (int i = threadIdx.x; i < SCAN_TILE; i += DAS_THREADS) {
     int64_t idx = base + i;
-    if (idx < n) out[idx] += add;
+    if (idx < n) out[idx] = (int64_t)((uint64_t)out[idx] + add);
   }
 }
 

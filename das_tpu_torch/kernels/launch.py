@@ -29,7 +29,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCH_COUNTS: Dict[str, int] = {
-    "probe": 0, "index_join": 0, "join_tables": 0, "anti_join": 0,
+    "probe": 0, "index_join": 0, "join_tables": 0, "anti_join": 0, "multiway": 0,
 }
 
 
@@ -42,6 +42,8 @@ _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)
+_PP = ctypes.POINTER(ctypes.c_void_p)
+_I64P = ctypes.POINTER(ctypes.c_int64)
 
 #: C entry points and their argument types (pointers and the stream as
 #: c_void_p, so no pointer is ever cut to 32 bits)
@@ -64,6 +66,11 @@ _SIGNATURES = {
         _P, _P, _I64, _I32, _P, _P, _I64, _I32, _IP, _IP, _I32,
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _P,
     ],
+    "das_multiway_join": [
+        _P, _P, _I64, _I32, _I32, _I32, _PP, _PP, _I64P, _IP, _IP, _IP, _IP, _I64,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P,
+    ],
+    "das_multiway_tail_bytes": [],
     "das_scan_inclusive_i64": [_P, _P, _I64, _P, _I64, _P],
     "das_argsort_i64": [_P, _I64, _P, _P, _P, _P, _P, _P, _P, _I64, _P],
 }
@@ -180,6 +187,15 @@ def int_array(values: Sequence[int]):
     if not values:
         return None
     return (ctypes.c_int * len(values))(*values)
+
+
+def ptr_array(tensors: Sequence[torch.Tensor]):
+    """A C array of device pointers."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def int64_array(values: Sequence[int]):
+    return (ctypes.c_int64 * len(values))(*[int(v) for v in values])
 
 
 def stream_of(device) -> int:

@@ -1,0 +1,38 @@
+"""Declared counter keys (own copies of the keys of
+`das_tpu/ops/counters.py` ROUTE_KEYS and PLANNER_KEYS that the port has).
+
+ROUTE_KEYS names the per-query answer routes the port counts
+(`query/compiler.py ROUTE_COUNTS` is built from it); the planner predicts
+one of them per plan (`PlannedProgram.route`).  A key joins in the slice
+that brings its route.  PLANNER_KEYS is the planner's telemetry
+(`planner.PLANNER_COUNTS` is built from it):
+
+  planned / greedy          conjunctions ordered and seeded by the planner
+                            vs the greedy heuristics (off, declined)
+  dp / greedy_tail / ref_order  which search produced the planned order
+  programs                  programs run for planned jobs (one per round)
+  round0 / retries          planned jobs settled with no capacity retry /
+                            retry rounds planned jobs still paid
+  est_rows / actual_rows    summed estimated vs actual step output rows"""
+
+ROUTE_KEYS = (
+    "fused",
+    "fused_kernel",
+    "fused_multiway",
+    "staged",
+    "count_kernel",
+    "host",
+)
+
+PLANNER_KEYS = (
+    "planned",
+    "greedy",
+    "dp",
+    "greedy_tail",
+    "ref_order",
+    "programs",
+    "round0",
+    "retries",
+    "est_rows",
+    "actual_rows",
+)

@@ -26,6 +26,7 @@ import torch
 from das_tpu_torch import kernels
 from das_tpu_torch.core.exceptions import CapacityOverflowError
 from das_tpu_torch.core.hashing import ExpressionHasher, hex_to_i64
+from das_tpu_torch.ops.counters import ROUTE_KEYS
 from das_tpu_torch.ops.join import dedup_table
 from das_tpu_torch.query import assignment as asn_mod
 from das_tpu_torch.query.assignment import OrderedAssignment
@@ -75,10 +76,14 @@ class UnknownAtom(NotCompilable):
     reference answers no-match for these, not an error."""
 
 
-#: How queries were executed: "fused" = the fused executor answered,
-#: "staged" = the staged pipeline, "host" = the host algebra (counted by
-#: `dispatch`).
-ROUTE_COUNTS = {"fused": 0, "staged": 0, "host": 0}
+#: How queries were executed (keys from ops/counters.py ROUTE_KEYS):
+#: "fused" = the fused executor answered, "fused_kernel" = such an answer
+#: from a store on the card (its hand-written kernels ran), "staged" = the
+#: staged pipeline, "host" = the host algebra (counted by `dispatch`);
+#: "fused_multiway" = a fused answer whose program ran a multiway step
+#: (counted at settle, also for count_matches); "count_kernel" =
+#: count_batch entries whose group ran the hand-written kernels.
+ROUTE_COUNTS = dict.fromkeys(ROUTE_KEYS, 0)
 
 
 def reset_route_counts() -> None:
@@ -316,6 +321,8 @@ def query_on_device(db: TensorDB, query: LogicalExpression,
         ROUTE_COUNTS["staged"] += 1
     else:
         ROUTE_COUNTS["fused"] += 1
+        if db.device.type == "cuda":
+            ROUTE_COUNTS["fused_kernel"] += 1
     return materialize(db, table, answer)
 
 

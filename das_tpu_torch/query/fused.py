@@ -1,29 +1,43 @@
-"""Fused execution of compiled conjunctive queries (port of the main-path
-subset of `das_tpu/query/fused.py`).
+"""Fused execution of compiled conjunctive queries (port of
+`das_tpu/query/fused.py`: the planned single-query path, the multiway step,
+the exact reference-order program and batched counting).
 
-The JAX package traces a whole plan — every probe, join and anti-join —
-into ONE jitted program.  Here the same plan runs as an eager sequence of
-kernel launches on the current stream (`run_conj`).  Every buffer is sized
-on the host before launch from static capacities, exactly as the JAX
-program sizes them, and all exact counts the host needs land in one
-stats vector
+The JAX package traces a whole plan — every probe, join, multiway step and
+anti-join — into ONE jitted program.  Here the same plan runs as an eager
+sequence of kernel launches on the current stream (`run_conj`).  Every
+buffer is sized on the host before launch from static capacities, exactly
+as the JAX program sizes them, and all exact counts the host needs land in
+one stats vector
 
-    [count, reseed, any_pos_empty, *term_ranges, *join_totals]
+    [count, reseed, any_pos_empty, *term_ranges, *step_totals]
 
 that comes back in ONE host fetch per retry round (`FETCH_COUNTS`).  On
-overflow the capacities double and the plan re-runs.  Two reference
-quirks are decided from the stats exactly as in the JAX package: an
-empty positive term is a definitive empty answer, and an accumulator
-that a join empties with positive terms remaining (the reseed quirk) —
-or an empty answer under a reordered fold — sends the query to the staged
-path (query/compiler.py execute_plan), which reproduces the quirk.
+overflow the capacities double and the plan re-runs.
 
-Join order is the greedy `order_plans` with the blind capacity seeds; the
-cost-based planner, the multiway kernel, the exact reference-order
-program, batched counting and the result cache are later slices."""
+The cost-based planner (das_tpu_torch/planner/, `DasConfig.use_planner`)
+fixes the join order and the capacity seed of every step; when it declines
+or is off, the greedy `order_plans` and the blind seeds apply.  The planner
+may fuse a star prefix into one k-way multiway step (kernels/multiway.py):
+`join_caps[0]` is then its output buffer, and its partial totals decide the
+reference's empty-accumulator reseed verdict without the intermediates
+existing.  Two reference quirks are decided from the stats exactly as in
+the JAX package: an empty positive term is a definitive empty answer, and
+an accumulator that a join empties with positive terms remaining (the
+reseed quirk) — or an empty answer under a reordered fold — sends the query
+to the staged path (query/compiler.py execute_plan), which reproduces it.
+
+`count_batch` counts many queries per call: queries group by shape, each
+group runs its lanes one after another on one stream (the eager
+counterpart of `jax.vmap`, identical lanes computed once) with one host
+fetch per retry round per group; entries the greedy order cannot decide
+re-run on the exact reference-order program (`run_exact`), whose reseed
+automaton answers them as the reference does.  Answered counts are kept in
+a `ResultCache` for the store generation."""
 
 from __future__ import annotations
 
+import copy
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -72,6 +86,10 @@ class FusedPlanSig:
     #: else the posting-index position of an INDEX JOIN (the right side
     #: stays implicit: a whole-type term probed through key_type_pos[p])
     index_joins: Tuple[int, ...] = ()
+    #: leading positives fused into ONE k-way multiway step (0 = pure
+    #: chain); join_caps[0] is then the multiway output buffer and
+    #: index_joins cover only the tail binary joins
+    multiway: int = 0
 
 
 @dataclass
@@ -85,6 +103,16 @@ class FusedResult:
     rounds: int              # retry rounds run (one host fetch each)
     host_vals: Optional[np.ndarray] = None   # fetched with the stats
     host_valid: Optional[np.ndarray] = None
+    multiway: bool = False   # answered by a program with a multiway step
+
+
+#: largest per-term candidate window the exact (reference-order) program
+#: materializes; beyond it the entry stays undecided (None)
+EXACT_TERM_CAP_LIMIT = 1 << 20
+
+#: a count group whose largest term capacity passes this runs no lanes
+#: (the single-query paths answer such whole-type terms)
+LARGE_TERM_BATCH_LIMIT = 1 << 23
 
 
 def _pow2_at_least(n: int, lo: int = 16) -> int:
@@ -124,32 +152,47 @@ def fold_join_meta(terms: Tuple[FusedTermSig, ...]):
     return positives, negatives, names, join_meta, anti_meta
 
 
-def plan_index_joins(sigs: Tuple[FusedTermSig, ...]):
+def multiway_meta(join_meta, mw: int):
+    """Static k-way step metadata for a multiway prefix of `mw` clauses:
+    (per-tail (v column, extra columns), clause 0's v column).  Every
+    prefix join shares exactly one variable, at the same accumulated
+    column."""
+    assert all(len(join_meta[j][0]) == 1 for j in range(mw - 1)), (
+        "multiway prefix joins must share exactly one variable"
+    )
+    meta = tuple((join_meta[j][0][0][1], join_meta[j][1]) for j in range(mw - 1))
+    return meta, join_meta[0][0][0][0]
+
+
+def plan_index_joins(sigs: Tuple[FusedTermSig, ...], start: int = 0):
     """Static per-join index-join eligibility: the right side must be an
     ordered whole-type probe (ROUTE_TYPE, no extra verification, no
     repeated variables), positive, and actually share a variable.
-    Returns (index_joins, right_terms: term index -> join position)."""
+    `start` skips the first joins (a multiway prefix's internal joins,
+    whose clauses are materialized term tables).  Returns (index_joins for
+    joins start..P-2, right_terms: term index -> position in that tuple)."""
     positives, _neg, _names, join_meta, _anti = fold_join_meta(sigs)
     index_joins = []
     right_terms = {}
-    for n in range(max(0, len(positives) - 1)):
+    for n in range(start, max(0, len(positives) - 1)):
         i = positives[n + 1]
         t = sigs[i]
         pairs, _extra = join_meta[n]
         if (t.route == ROUTE_TYPE and not t.negated and not t.eq_pairs
                 and not t.extra_fixed and pairs):
             index_joins.append(t.var_cols[pairs[0][1]])
-            right_terms[i] = n
+            right_terms[i] = n - start
         else:
             index_joins.append(-1)
     return tuple(index_joins), right_terms
 
 
-def apply_index_joins(buckets, sigs, arrays, term_caps):
+def apply_index_joins(buckets, sigs, arrays, term_caps, start_join: int = 0):
     """Decide per-join index-join routing and rewrite the affected terms'
     inputs: the positional posting index instead of the type-sorted window,
-    and a token capacity (the term is never materialized)."""
-    index_joins, index_right = plan_index_joins(sigs)
+    and a token capacity (the term is never materialized).  `start_join`
+    excludes a multiway prefix's internal joins."""
+    index_joins, index_right = plan_index_joins(sigs, start_join)
     if index_right:
         arrays, term_caps = list(arrays), list(term_caps)
         for i, n in index_right.items():
@@ -276,8 +319,12 @@ def run_conj(sig: FusedPlanSig, bucket_arrays, keys, fixed_vals):
     with stats the int64 device vector [count, reseed, any_pos_empty,
     *term_ranges, *join_totals]; nothing here waits for the device."""
     positives, _negatives, _names, join_meta, anti_meta = fold_join_meta(sig.terms)
-    index_joins = sig.index_joins or tuple([-1] * max(0, len(positives) - 1))
-    index_right = {positives[1 + t]: t for t, p in enumerate(index_joins) if p >= 0}
+    mw = sig.multiway
+    # first positive the binary fold starts from (the accumulator is the
+    # multiway output when mw, else the first term table)
+    start = mw if mw else 1
+    index_joins = sig.index_joins or tuple([-1] * max(0, len(positives) - start))
+    index_right = {positives[start + t]: t for t, p in enumerate(index_joins) if p >= 0}
     dev = bucket_arrays[0][0].device
     zero = torch.zeros((), dtype=torch.int64, device=dev)
 
@@ -319,9 +366,24 @@ def run_conj(sig: FusedPlanSig, bucket_arrays, keys, fixed_vals):
         reseed = acc_valid.sum() == 0
     else:
         reseed = torch.zeros((), dtype=torch.bool, device=dev)
-    for t, i in enumerate(positives[1:]):
-        pairs, extra = join_meta[t]
-        jc = sig.join_caps[t]
+    if mw:
+        # k-way multiway step: every prefix clause grounds in one pass into
+        # one output buffer (join_caps[0]).  Its partial totals are the
+        # would-be binary intermediates' exact sizes, so the reseed verdict
+        # follows the chain's rule: the t-th internal join counts iff it
+        # comes before the program's LAST join (n < len(positives) - 2).
+        mw_meta, mw_vcol0 = multiway_meta(join_meta, mw)
+        acc_vals, acc_valid, mw_totals = kernels.multiway_join(
+            acc_vals, acc_valid, [tables[i] for i in positives[1:mw]],
+            mw_vcol0, mw_meta, sig.join_caps[0],
+        )
+        join_counts.append(mw_totals[mw - 2])
+        for t in range(max(0, min(mw - 1, len(positives) - 2))):
+            reseed = reseed | (mw_totals[t] == 0)
+    for t, i in enumerate(positives[start:]):
+        n = start - 1 + t          # absolute join position
+        pairs, extra = join_meta[n]
+        jc = sig.join_caps[(1 if mw else 0) + t]
         # no post-join dedup: a join of duplicate-free tables is
         # duplicate-free
         if index_joins[t] >= 0:
@@ -336,7 +398,7 @@ def run_conj(sig: FusedPlanSig, bucket_arrays, keys, fixed_vals):
                 acc_vals, acc_valid, rv, rm, pairs, extra, jc,
             )
         join_counts.append(_scalar(total))
-        if t < len(positives) - 2:
+        if n < len(positives) - 2:
             reseed = reseed | (acc_valid.sum() == 0)
 
     for i, pairs in anti_meta:
@@ -352,6 +414,123 @@ def run_conj(sig: FusedPlanSig, bucket_arrays, keys, fixed_vals):
     return acc_vals, acc_valid, stats
 
 
+@dataclass(frozen=True)
+class FusedExactSig:
+    """Shape-static description of a REFERENCE-ORDER plan for the exact
+    program.  chain_caps holds one capacity per suffix chain join (s, i),
+    s < i, in _chain_order() order."""
+
+    terms: Tuple[FusedTermSig, ...]
+    term_caps: Tuple[int, ...]
+    chain_caps: Tuple[int, ...]
+
+
+def _chain_order(P: int):
+    return [(s, i) for s in range(P) for i in range(s + 1, P)]
+
+
+def _fold_names(var_names_seq):
+    """Static fold of output variable names along a join chain: the final
+    name tuple and per-step (pairs, extra) join metadata."""
+    names: Tuple[str, ...] = ()
+    metas = []
+    for n, vn in enumerate(var_names_seq):
+        if n == 0:
+            names = tuple(vn)
+            continue
+        pairs = tuple((names.index(v), vn.index(v)) for v in names if v in vn)
+        extra = tuple(j for j, v in enumerate(vn) if v not in names)
+        metas.append((pairs, extra))
+        names = names + tuple(v for v in vn if v not in names)
+    return names, metas
+
+
+def run_exact(sig: FusedExactSig, bucket_arrays, keys, fixed_vals):
+    """The reference And fold EXACTLY, reseed quirk included (the eager
+    count form of the JAX package's build_fused_exact).  Every possible
+    reseed point s gives a static suffix chain J(s, i) = A_s join ... join
+    A_i; all P(P-1)/2 chain joins run, the reference fold runs as a small
+    automaton over their exact counts (state = latest reseed point), and
+    the active state's count is reported.  Chain totals are masked to the
+    active path so the host never grows capacity for chains never taken.
+    Returns the int64 device stats vector
+    [count, s_active, any_pos_empty, *term_ranges, *masked_chain_totals]."""
+    positives = [i for i, t in enumerate(sig.terms) if not t.negated]
+    negatives = [i for i, t in enumerate(sig.terms) if t.negated]
+    P = len(positives)
+    cap_of = dict(zip(_chain_order(P), sig.chain_caps))
+    dev = bucket_arrays[0][0].device
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+
+    final_names = {}     # s -> bound names of the full suffix chain J(s, P-1)
+    chain_meta: Dict[Tuple[int, int], Tuple] = {}
+    for s in range(P):
+        final_names[s], metas = _fold_names(
+            [sig.terms[positives[i]].var_names for i in range(s, P)]
+        )
+        for off, meta in enumerate(metas):
+            chain_meta[(s, s + 1 + off)] = meta
+
+    tables = {}
+    term_ranges = []
+    for i, t in enumerate(sig.terms):
+        sorted_keys, perm, targets, _tid = bucket_arrays[i]
+        vals, mask, rng = kernels.probe_term_table(
+            sorted_keys, perm, targets, keys[i], fixed_vals[i], sig.term_caps[i],
+            var_cols=t.var_cols, eq_pairs=t.eq_pairs, extra_fixed=t.extra_fixed,
+        )
+        tables[i] = (vals, mask)
+        term_ranges.append(_scalar(rng))
+    pos_counts = [_scalar(tables[i][1].sum()) for i in positives]
+    any_pos_empty = torch.zeros((), dtype=torch.bool, device=dev)
+    for c in pos_counts:
+        any_pos_empty = any_pos_empty | (c == 0)
+
+    chain = {}
+    counts = {}          # (s, i) -> exact rows of chain J(s, i)
+    for s in range(P):
+        chain[(s, s)] = tables[positives[s]]
+        counts[(s, s)] = pos_counts[s]
+        for i in range(s + 1, P):
+            rv, rm = tables[positives[i]]
+            pairs, extra = chain_meta[(s, i)]
+            v, m, tot = kernels.join_tables(
+                chain[(s, i - 1)][0], chain[(s, i - 1)][1], rv, rm, pairs, extra,
+                cap_of[(s, i)],
+            )
+            chain[(s, i)] = (v, m)
+            counts[(s, i)] = _scalar(tot)
+
+    def active(values):
+        """The value of the active state s_act, selected on the device."""
+        return sum(torch.where(s_act == s, v, zero) for s, v in values.items())
+
+    # the reference fold as an automaton over the chain counts: state =
+    # latest reseed point, the transition taken BEFORE joining term i
+    s_act = zero
+    used = {}
+    for i in range(1, P):
+        prev_empty = active({s: counts[(s, i - 1)] for s in range(i)}) == 0
+        for s in range(i):
+            used[(s, i)] = (~prev_empty) & (s_act == s)
+        s_act = torch.where(prev_empty, torch.full_like(s_act, i), s_act)
+    masked_totals = [torch.where(used[p], counts[p], zero) for p in _chain_order(P)]
+
+    final_counts = {}
+    for s in range(P):
+        v, m = chain[(s, P - 1)]
+        names_s = final_names[s]
+        for ni in negatives:
+            t = sig.terms[ni]
+            if set(t.var_names) <= set(names_s):
+                pairs = tuple((names_s.index(x), t.var_names.index(x)) for x in t.var_names)
+                rv, rm = tables[ni]
+                m = kernels.anti_join(v, m, rv, rm, pairs)
+        final_counts[s] = _scalar(m.sum())
+    count = torch.where(any_pos_empty, zero, active(final_counts))
+    return torch.stack([count, s_act, _scalar(any_pos_empty), *term_ranges, *masked_totals])
+
+
 def fetch(*tensors) -> List[np.ndarray]:
     """ONE host fetch of device tensors: every copy is queued without
     blocking, then the stream is synchronized once."""
@@ -365,12 +544,65 @@ def fetch(*tensors) -> List[np.ndarray]:
     return [h.numpy() for h in host]
 
 
+#: answered count entries the executor's result cache keeps (LRU)
+RESULT_CACHE_SIZE = 256
+
+
+class ResultCache:
+    """Answered counts of `count_batch`, LRU-bounded by
+    `RESULT_CACHE_SIZE` and valid for one store generation
+    (`TensorDB.generation`, bumped by `refresh()`).  The key is the TermPlan
+    tuple, which carries the plan's shape and every grounded value; global
+    rows are stable within a generation, so a hit needs no device work."""
+
+    def __init__(self, db):
+        self.db = db
+        self._data: "OrderedDict" = OrderedDict()
+        self._generation = db.generation
+        self.stats = {"hits": 0, "misses": 0, "invalidations": 0}
+
+    @staticmethod
+    def key(plans):
+        return tuple(
+            (p.arity, p.type_id, p.ctype, p.fixed, p.var_names, p.var_cols, p.eq_pairs,
+             p.negated)
+            for p in plans
+        )
+
+    def _sync_generation(self) -> None:
+        if self.db.generation != self._generation:
+            if self._data:
+                self.stats["invalidations"] += 1
+            self._data.clear()
+            self._generation = self.db.generation
+
+    def get(self, key) -> Optional[int]:
+        self._sync_generation()
+        hit = self._data.get(key)
+        if hit is None:
+            self.stats["misses"] += 1
+            return None
+        self._data.move_to_end(key)
+        self.stats["hits"] += 1
+        return hit
+
+    def put(self, key, count: int) -> None:
+        self._sync_generation()
+        self._data[key] = count
+        self._data.move_to_end(key)
+        while len(self._data) > RESULT_CACHE_SIZE:
+            self._data.popitem(last=False)
+
+    def clear(self) -> None:
+        self._data.clear()
+
+
 class _ExecJob:
-    """One execute()'s mutable state: ordered term arguments and the
-    capacities, which grow between retry rounds."""
+    """One execute()'s mutable state: ordered term arguments, the planner's
+    program and the capacities, which grow between retry rounds."""
 
     def __init__(self, same_order, sigs, arrays, keys, fvals, term_caps,
-                 join_caps, index_joins, index_right):
+                 join_caps, index_joins, planned=None, multiway=0):
         self.same_order = same_order
         self.sigs = sigs
         self.arrays = arrays
@@ -379,20 +611,48 @@ class _ExecJob:
         self.term_caps = term_caps
         self.join_caps = join_caps
         self.index_joins = index_joins
-        self.index_right = index_right
+        #: the PlannedProgram that ordered and seeded this job (None = greedy)
+        self.planned = planned
+        #: leading positives fused into one multiway step (0 = binary chain)
+        self.multiway = multiway
         self.rounds = 0
 
     def plan_sig(self) -> FusedPlanSig:
-        return FusedPlanSig(self.sigs, self.term_caps, self.join_caps, self.index_joins)
+        return FusedPlanSig(self.sigs, self.term_caps, self.join_caps, self.index_joins,
+                            self.multiway)
+
+
+def _grown(counts, caps) -> Tuple[int, ...]:
+    """Capacities after one round: each one its exact count's power of two
+    where the count overflowed it."""
+    return tuple(_pow2_at_least(int(n)) if int(n) > c else c for n, c in zip(counts, caps))
 
 
 class FusedExecutor:
-    """Per-database executor: plan arguments, capacity seeds and the
-    overflow-corrected capacities learned per plan shape."""
+    """Per-database executor: plan arguments, capacity seeds, the
+    overflow-corrected capacities learned per plan shape, and the count
+    result cache."""
 
     def __init__(self, db):
         self.db = db
+        self.results = ResultCache(db)
+        #: count-batch work: groups run, lanes computed after dedup, members,
+        #: and the groups of them that ran the exact second pass
+        self.batch_counts = {"groups": 0, "lanes": 0, "members": 0, "exact_groups": 0}
         self._caps: Dict[Tuple, Tuple[Tuple[int, ...], Tuple[int, ...]]] = {}
+        self._exact_caps: Dict[Tuple, Tuple[Tuple[int, ...], Tuple[int, ...]]] = {}
+
+    @staticmethod
+    def _learned_caps(mem, sigs, shape_lens):
+        """Learned caps for the signature, if their per-stage lengths match:
+        the same terms carry per-JOIN buffers on the chain but per-STEP
+        buffers with a multiway step."""
+        caps = mem.get(sigs)
+        if caps is not None and len(caps) == len(shape_lens) and all(
+            len(c) == n for c, n in zip(caps, shape_lens)
+        ):
+            return caps
+        return None
 
     def _term_args(self, plan) -> Optional[Tuple[FusedTermSig, Tuple, object, np.ndarray]]:
         """Map a compiler.TermPlan to (sig, bucket_arrays, key, fixed_vals);
@@ -425,6 +685,14 @@ class FusedExecutor:
         )
         return sig, arrays, key, fixed_vals
 
+    def _map_terms(self, plans):
+        """(sigs, arrays, keys, fvals) of the plans, or None when a bucket
+        is missing."""
+        mapped = [self._term_args(p) for p in plans]
+        if any(m is None for m in mapped):
+            return None
+        return tuple(tuple(m[k] for m in mapped) for k in range(4))
+
     def _estimate(self, plan) -> int:
         return estimate_plan_rows(self.db, plan)
 
@@ -441,30 +709,59 @@ class FusedExecutor:
             return _pow2_at_least(max(64, min(cfg.initial_result_capacity, 4 * mg), mg))
         return _pow2_at_least(max([cfg.initial_result_capacity, *term_caps]))
 
+    def _group_cap_seed(self, sigs, est_rows) -> int:
+        """_join_cap_seed for a count group: grounded-ness comes from the
+        route; the estimates vary per member."""
+        cfg = self.db.config
+        grounded_idx = [
+            t for t, s in enumerate(sigs) if s.route == ROUTE_TYPE_POS and not s.negated
+        ]
+        if grounded_idx:
+            m = max(max(e[t] for t in grounded_idx) for e in est_rows)
+            return _pow2_at_least(max(64, min(cfg.initial_result_capacity, 4 * m), m))
+        term_cap_max = max(
+            _pow2_at_least(max(e[t] for e in est_rows)) for t in range(len(sigs))
+        )
+        return _pow2_at_least(max(cfg.initial_result_capacity, term_cap_max))
+
     def _exec_job(self, plans) -> Optional[_ExecJob]:
         """Order the plan, map its terms, seed the capacities.  None when a
-        bucket is missing or the merged capacities exceed the ceiling."""
-        ordered = order_plans(plans, self._estimate)
+        bucket is missing or the merged capacities exceed the ceiling.
+
+        Behind `config.use_planner` the cost-based planner fixes the order,
+        the per-step capacity seeds and the multiway prefix; when it
+        declines (or is off) the greedy order and the blind seed apply."""
+        from das_tpu_torch import planner as _planner
+
+        planned = (
+            _planner.plan_conjunction(self.db, plans)
+            if _planner.enabled(self.db.config) else None
+        )
+        mw = planned.multiway if planned is not None else 0
+        if planned is not None:
+            ordered = [plans[i] for i in planned.order]
+        else:
+            ordered = order_plans(plans, self._estimate)
         same_order = same_positive_order(ordered, plans)
-        mapped = []
-        for plan in ordered:
-            m = self._term_args(plan)
-            if m is None:
-                return None
-            mapped.append(m)
-        sigs = tuple(m[0] for m in mapped)
-        arrays = tuple(m[1] for m in mapped)
-        keys = tuple(m[2] for m in mapped)
-        fvals = tuple(m[3] for m in mapped)
+        mapped = self._map_terms(ordered)
+        if mapped is None:
+            return None
+        sigs, arrays, keys, fvals = mapped
         cfg = self.db.config
         # exact host-side range counts => term capacities never overflow
         term_caps = tuple(_pow2_at_least(self._estimate(p)) for p in ordered)
         index_joins, index_right, arrays, term_caps = apply_index_joins(
-            self.db.dev.buckets, sigs, arrays, term_caps
+            self.db.dev.buckets, sigs, arrays, term_caps, start_join=max(0, mw - 1)
         )
         n_positive = sum(1 for s in sigs if not s.negated)
-        join_caps = tuple([self._join_cap_seed(ordered, term_caps)] * max(0, n_positive - 1))
-        learned = self._caps.get(sigs)
+        # one buffer per STEP: the multiway step plus the tail joins, or the
+        # chain's P - 1 joins
+        n_steps = (n_positive - mw + 1) if mw else max(0, n_positive - 1)
+        if planned is not None and len(planned.join_cap_seeds) == n_steps:
+            join_caps = planned.join_cap_seeds
+        else:
+            join_caps = tuple([self._join_cap_seed(ordered, term_caps)] * n_steps)
+        learned = self._learned_caps(self._caps, sigs, (len(term_caps), len(join_caps)))
         if learned is not None:
             term_caps = clamp_index_terms(
                 tuple(max(a, b) for a, b in zip(term_caps, learned[0])), index_right
@@ -472,20 +769,31 @@ class FusedExecutor:
             join_caps = tuple(max(a, b) for a, b in zip(join_caps, learned[1]))
         if max(term_caps + join_caps, default=0) > cfg.max_result_capacity:
             return None
+        # counted once the job exists: a decline above falls back to the
+        # staged path, which the planned/greedy split does not cover
+        if planned is not None:
+            _planner.record_planned(planned)
+        else:
+            _planner.PLANNER_COUNTS["greedy"] += 1
         return _ExecJob(same_order, sigs, arrays, keys, fvals, term_caps, join_caps,
-                        index_joins, index_right)
+                        index_joins, planned=planned, multiway=mw)
 
     def execute(self, plans, count_only: bool = False) -> Optional[FusedResult]:
         """Run the plan, one host fetch per round, doubling capacities on
         overflow.  None when a bucket is missing or a capacity would pass
         max_result_capacity (the staged path then answers and owns the
         overflow policy)."""
+        from das_tpu_torch import planner as _planner
+        from das_tpu_torch.query import compiler as _compiler
+
         job = self._exec_job(plans)
         if job is None:
             return None
         names = fold_join_meta(job.sigs)[2]
         while True:
             job.rounds += 1
+            if job.planned is not None:
+                _planner.PLANNER_COUNTS["programs"] += 1
             vals, valid, stats_dev = run_conj(job.plan_sig(), job.arrays, job.keys, job.fvals)
             if count_only:
                 (stats,) = fetch(stats_dev)
@@ -494,20 +802,18 @@ class FusedExecutor:
                 stats, host_vals, host_valid = fetch(stats_dev, vals, valid)
             ranges = stats[3:3 + len(job.sigs)]
             jcounts = stats[3 + len(job.sigs):]
-            new_tc = tuple(
-                _pow2_at_least(int(r)) if int(r) > c else c
-                for r, c in zip(ranges, job.term_caps)
-            )
-            new_jc = tuple(
-                _pow2_at_least(int(t)) if int(t) > c else c
-                for t, c in zip(jcounts, job.join_caps)
-            )
+            new_tc = _grown(ranges, job.term_caps)
+            new_jc = _grown(jcounts, job.join_caps)
             if new_tc == job.term_caps and new_jc == job.join_caps:
                 break
             if max(new_tc + new_jc, default=0) > self.db.config.max_result_capacity:
                 return None
             job.term_caps, job.join_caps = new_tc, new_jc
         self._caps[job.sigs] = (job.term_caps, job.join_caps)
+        if job.planned is not None:
+            _planner.observe_settle(job.planned, [int(t) for t in jcounts], job.rounds)
+        if job.multiway:
+            _compiler.ROUTE_COUNTS["fused_multiway"] += 1
         count, reseed, pos_empty = int(stats[0]), bool(stats[1]), bool(stats[2])
         n_positive = sum(1 for s in job.sigs if not s.negated)
         return FusedResult(
@@ -519,7 +825,219 @@ class FusedExecutor:
                 count == 0 and n_positive > 1 and not pos_empty and not job.same_order
             ),
             stats=stats, rounds=job.rounds, host_vals=host_vals, host_valid=host_valid,
+            multiway=bool(job.multiway),
         )
+
+    # -- batched counting ------------------------------------------------------
+
+    def _run_batch_group(self, run_lane, key_rows, fval_rows, n_terms, term_caps, caps):
+        """Run one count group: identical lanes computed once, every lane's
+        stats stacked on the device and fetched in ONE host fetch per retry
+        round, capacities grown to the largest lane's overflow.  Lanes run
+        one after another on one stream (the eager counterpart of the JAX
+        package's vmap).  Returns (stats rows per member or None at the
+        ceiling, term_caps, caps); rows follow the layout
+        [count, flag, flag, *term_ranges, *step_totals]."""
+        cfg = self.db.config
+        seen: Dict[Tuple, int] = {}
+        back: List[int] = []
+        lanes = []
+        for kr, fr in zip(key_rows, fval_rows):
+            h = (tuple(np.asarray(k).tobytes() for k in kr),
+                 tuple(np.asarray(f).tobytes() for f in fr))
+            i = seen.get(h)
+            if i is None:
+                i = seen[h] = len(lanes)
+                lanes.append((kr, fr))
+            back.append(i)
+        self.batch_counts["groups"] += 1
+        self.batch_counts["lanes"] += len(lanes)
+        self.batch_counts["members"] += len(back)
+        while True:
+            (stats,) = fetch(torch.stack([run_lane(term_caps, caps, kr, fr) for kr, fr in lanes]))
+            ranges = stats[:, 3:3 + n_terms]
+            totals = stats[:, 3 + n_terms:]
+            new_tc = _grown(ranges.max(axis=0), term_caps)
+            new_cc = _grown(totals.max(axis=0), caps) if totals.size else caps
+            if new_tc == term_caps and new_cc == caps:
+                return stats[np.asarray(back)], term_caps, caps
+            if max(new_tc + new_cc) > cfg.max_result_capacity:
+                return None, term_caps, caps
+            term_caps, caps = new_tc, new_cc
+
+    @staticmethod
+    def _structural_key(p):
+        return (
+            p.negated, p.arity, p.ctype is not None, p.type_id is None,
+            tuple(pos for pos, _ in p.fixed), p.var_cols, p.eq_pairs,
+        )
+
+    def _count_order(self, plans):
+        """Ordering for count batches: when every positive term shares a
+        common variable, by (log16 size class, structure) so same-shape
+        lanes share one group; otherwise the greedy order."""
+        pos = [p for p in plans if not p.negated]
+        if len(pos) > 1:
+            common = set(pos[0].var_names)
+            for p in pos[1:]:
+                common &= set(p.var_names)
+            if common:
+                neg = [p for p in plans if p.negated]
+                return sorted(
+                    pos,
+                    key=lambda p: (
+                        max(0, int(self._estimate(p)).bit_length() - 1) // 4,
+                        self._structural_key(p),
+                    ),
+                ) + neg
+        return order_plans(plans, self._estimate)
+
+    @staticmethod
+    def _canonical_plans(plans):
+        """Rename variables by first occurrence (X0, X1, ...) so a count
+        group's signature depends on join structure alone (a count is
+        invariant under renaming; result-set paths must not use this)."""
+        mapping: Dict[str, str] = {}
+        out = []
+        for p in plans:
+            names = []
+            for n in p.var_names:
+                if n not in mapping:
+                    mapping[n] = f"X{len(mapping)}"
+                names.append(mapping[n])
+            q = copy.copy(p)
+            q.var_names = tuple(names)
+            out.append(q)
+        return out
+
+    def count_batch(self, plans_list) -> List[Optional[int]]:
+        """Count many queries per call.  Plans group by shape signature;
+        each group runs its lanes in one retry loop with one host fetch per
+        round.  Entries the greedy order cannot decide (a possible reseed)
+        re-run on the exact reference-order program.  A count, or None
+        where neither can answer (missing bucket, capacity ceilings): the
+        caller then falls back to count_matches."""
+        from das_tpu_torch.query import compiler as _compiler
+
+        prepared = []   # (index, sigs, arrays, keys, fvals, ests, same_order)
+        out: List[Optional[int]] = [None] * len(plans_list)
+        groups: Dict[Tuple, List[int]] = {}
+        cache_keys: Dict[int, Tuple] = {}
+        for idx, plans in enumerate(plans_list):
+            n = trivial_plan_count(self.db, plans)
+            if n is not None:
+                out[idx] = n
+                continue
+            cache_keys[idx] = self.results.key(plans)
+            hit = self.results.get(cache_keys[idx])
+            if hit is not None:
+                out[idx] = hit
+                continue
+            ordered = self._count_order(plans)
+            same_order = same_positive_order(ordered, plans)
+            mapped = self._map_terms(self._canonical_plans(ordered))
+            if mapped is None:
+                continue
+            sigs, arrays, keys, fvals = mapped
+            prepared.append((idx, sigs, arrays, keys, fvals,
+                             tuple(self._estimate(p) for p in ordered), same_order))
+            groups.setdefault(sigs, []).append(len(prepared) - 1)
+
+        def answer(idx: int, n: int) -> None:
+            out[idx] = n
+            if idx in cache_keys:
+                self.results.put(cache_keys[idx], n)
+
+        cfg = self.db.config
+        on_card = self.db.device.type == "cuda"
+        for sigs, members in groups.items():
+            term_caps = tuple(
+                _pow2_at_least(max(prepared[m][5][t] for m in members))
+                for t in range(len(sigs))
+            )
+            index_joins, index_right, group_arrays, term_caps = apply_index_joins(
+                self.db.dev.buckets, sigs, prepared[members[0]][2], term_caps
+            )
+            n_joins = max(0, sum(1 for s in sigs if not s.negated) - 1)
+            join_caps = tuple(
+                [self._group_cap_seed(sigs, [prepared[m][5] for m in members])] * n_joins
+            )
+            learned = self._learned_caps(self._caps, sigs, (len(term_caps), len(join_caps)))
+            if learned is not None:
+                term_caps = clamp_index_terms(
+                    tuple(max(a, b) for a, b in zip(term_caps, learned[0])), index_right
+                )
+                join_caps = tuple(max(a, b) for a, b in zip(join_caps, learned[1]))
+            if max(term_caps + join_caps, default=0) > cfg.max_result_capacity:
+                continue
+            if max(term_caps, default=0) > LARGE_TERM_BATCH_LIMIT:
+                continue
+
+            def run_lane(tc, jc, kr, fr, _s=sigs, _ij=index_joins, _a=group_arrays):
+                return run_conj(FusedPlanSig(_s, tc, jc, _ij), _a, kr, fr)[2]
+
+            stats, term_caps, join_caps = self._run_batch_group(
+                run_lane, [prepared[m][3] for m in members],
+                [prepared[m][4] for m in members], len(sigs), term_caps, join_caps,
+            )
+            if stats is None:
+                continue
+            self._caps[sigs] = (term_caps, join_caps)
+            if on_card:
+                # one count per query whose group ran the hand-written kernels
+                _compiler.ROUTE_COUNTS["count_kernel"] += len(members)
+            n_positive = sum(1 for s in sigs if not s.negated)
+            for row, m in zip(stats, members):
+                count, reseed, pos_empty = int(row[0]), bool(row[1]), bool(row[2])
+                if reseed or (count == 0 and n_positive > 1 and not pos_empty
+                              and not prepared[m][6]):
+                    continue  # the greedy order cannot decide: exact pass below
+                answer(prepared[m][0], count)
+
+        # exact second pass: the undecided entries re-run in REFERENCE order
+        # on the exact program, one group per shape
+        exact_groups: Dict[Tuple, List[Tuple]] = {}
+        for idx, plans in enumerate(plans_list):
+            if out[idx] is not None:
+                continue
+            mapped = self._map_terms(self._canonical_plans(plans))
+            if mapped is None:
+                continue
+            sigs, arrays, keys, fvals = mapped
+            exact_groups.setdefault(sigs, []).append(
+                (idx, arrays, keys, fvals, tuple(self._estimate(p) for p in plans))
+            )
+        for sigs, members in exact_groups.items():
+            term_caps = tuple(
+                _pow2_at_least(max(mm[4][t] for mm in members)) for t in range(len(sigs))
+            )
+            P = sum(1 for s in sigs if not s.negated)
+            cap0 = self._group_cap_seed(sigs, [mm[4] for mm in members])
+            chain_caps = tuple([cap0] * len(_chain_order(P)))
+            learned = self._learned_caps(self._exact_caps, sigs,
+                                         (len(term_caps), len(chain_caps)))
+            if learned is not None:
+                term_caps = tuple(max(a, b) for a, b in zip(term_caps, learned[0]))
+                chain_caps = tuple(max(a, b) for a, b in zip(chain_caps, learned[1]))
+            if max(term_caps) > min(cfg.max_result_capacity, EXACT_TERM_CAP_LIMIT):
+                continue
+            if max(chain_caps, default=0) > cfg.max_result_capacity:
+                continue
+
+            def run_lane(tc, cc, kr, fr, _s=sigs, _a=members[0][1]):
+                return run_exact(FusedExactSig(_s, tc, cc), _a, kr, fr)
+
+            self.batch_counts["exact_groups"] += 1
+            stats, term_caps, chain_caps = self._run_batch_group(
+                run_lane, [mm[2] for mm in members], [mm[3] for mm in members],
+                len(sigs), term_caps, chain_caps,
+            )
+            if stats is None:
+                continue
+            self._exact_caps[sigs] = (term_caps, chain_caps)
+            for row, mm in zip(stats, members):
+                answer(mm[0], int(row[0]))
+        return out
 
 
 def get_executor(db) -> FusedExecutor:

@@ -153,6 +153,9 @@ class TensorDB(MemoryDB):
         self.config = config or DasConfig()
         self.fin: Finalized = self.data.finalize()
         self.dev = DeviceTables(self.fin, self.device)
+        #: bumped whenever the store is rebuilt: the planner's statistics
+        #: and the count result cache hold for one generation
+        self.generation = 0
 
     def __repr__(self):
         return "<TensorDB>"
@@ -167,6 +170,7 @@ class TensorDB(MemoryDB):
             return
         self.fin = fin
         self.dev = DeviceTables(self.fin, self.device)
+        self.generation += 1
 
     # -- low-level lookups (shared with the query compiler) ----------------
 

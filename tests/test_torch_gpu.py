@@ -113,3 +113,56 @@ def test_cuda_kernels_match_plain_on_card():
         args = (lv, lm, *right, ((0, 1), (1, 0)))
         assert torch.equal(kernels.anti_join_plain(*args), kernels.anti_join(*args))
     torch.cuda.synchronize()
+
+
+def _star(rng, n_left, widths, span, rows):
+    left = _table(rng, n_left, 2, span)
+    tails, meta = [], []
+    for w in widths:
+        tails.append(_table(rng, rows, w, span))
+        vcol = int(rng.integers(0, w))
+        meta.append((vcol, tuple(c for c in range(w) if c != vcol)))
+    return left, tails, tuple(meta)
+
+
+@pytest.mark.gpu
+def test_multiway_kernel_matches_plain_on_card():
+    """Kernel 5 against its plain version on the same CUDA tensors, exactly:
+    random stars of 1-3 tails with tied keys, totals past capacity, an
+    all-invalid left side, an empty intersection, zero-row sides, a
+    window product that wraps int64, and a star of 18 tails."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels only run on the GPU")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(17)
+
+    def c(x):
+        return _t(x).to(dev)
+
+    def check(left, tails, meta, vcol0, cap):
+        args = ((c(left[0]), c(left[1])), [(c(v), c(m)) for v, m in tails])
+        want = kernels.multiway_join_plain(*args[0], args[1], vcol0, meta, cap)
+        got = kernels.multiway_join(*args[0], args[1], vcol0, meta, cap)
+        for w, g in zip(want, got):
+            assert w.dtype == g.dtype and torch.equal(w, g)
+        return got
+
+    for widths, span, rows in [((2,), 7, 5000), ((2, 3), 20, 3000), ((3, 1, 2), 20, 2000)]:
+        left, tails, meta = _star(rng, 4000, widths, span, rows)
+        for cap in (1 << 16, 100):
+            check(left, tails, meta, 1, cap)
+    left, tails, meta = _star(rng, 300, (2, 2), 5, 300)
+    got = check((left[0] * 0, left[1] & False), tails, meta, 1, 512)
+    assert int(got[2].abs().sum()) == 0
+    got = check(left, [(v + 100, m) for v, m in tails], meta, 1, 512)
+    assert int(got[2].abs().sum()) == 0
+    check((left[0][:0], left[1][:0]), tails, meta, 1, 64)
+    check(left, [tails[0], (tails[1][0][:0], tails[1][1][:0])], meta, 1, 64)
+    n = 1 << 16
+    tail = (np.zeros((n, 1), np.int32), np.ones(n, bool))
+    got = check((np.zeros((1, 2), np.int32), np.ones(1, bool)), [tail] * 4,
+                ((0, ()),) * 4, 0, 16)
+    assert got[2].tolist() == [1 << 16, 1 << 32, 1 << 48, 0]
+    left, tails, meta = _star(rng, 64, (2,) * 18, 3, 6)
+    check(left, tails, meta, 1, 256)
+    torch.cuda.synchronize()
