@@ -14,8 +14,16 @@ Phases, one JSON line each:
                calls of one grounded star and of one fan-out star whose
                Member tail has >= 2^21 rows, totals past capacity, tied
                keys, an empty side or intersection, an all-invalid left
-               side, a star of 18 tails, int32 and int64 probe keys;
-               times from CUDA events;
+               or right side, a star of 18 tails, int32 and int64 probe
+               keys, fan-out-sized tails holding v and ~v (equal mixed
+               keys), the int64 wraparound of four 2^16-row tails, and a
+               case for every regime of the anti join (shared, global)
+               and the multiway join (block, filter, global), a star of
+               30 tails (descriptors in device memory), each held
+               to the regime named for it; times from CUDA events, the
+               kernels launched per call, and for the main-path call of
+               each kernel with regimes the host time of a call queued
+               behind a sleep kernel (the wrapper must not wait);
   3. slice   — the main path through the public API: a FlyBase-shaped
                knowledge base (SimplePatternMiner.ipynb cell 0, cut by
                --scale) in DistributedAtomSpace(backend="tensor") on the
@@ -102,6 +110,13 @@ WRAPPERS = {
 }
 
 
+def regime_counts():
+    """launch.REGIME_COUNTS as {"kernel/regime": calls}."""
+    from das_tpu_torch.kernels import launch
+
+    return {f"{k}/{r}": n for (k, r), n in launch.REGIME_COUNTS.items()}
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -134,6 +149,7 @@ def queued_host_ms(fn):
     import torch
 
     fn()
+    torch.cuda._sleep(1000)       # the sleep kernel's own first launch is slow
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     torch.cuda._sleep(100_000_000)
@@ -496,6 +512,7 @@ def phase_kernels(das, gene_name, star, fanout, iters):
     import torch
 
     from das_tpu_torch import kernels
+    from das_tpu_torch.kernels import launch
     from das_tpu_torch.ops.join import SENTINEL_L, SENTINEL_R, mix_columns
 
     wrappers = {
@@ -537,43 +554,77 @@ def phase_kernels(das, gene_name, star, fanout, iters):
     left, lmask = rand_table(4096, 2, int(procs.min()), int(procs.max()) + 1)
     empty_v = torch.zeros((0, 2), dtype=torch.int32, device=dev)
     empty_m = torch.zeros(0, dtype=torch.bool, device=dev)
+    # the fan-out star's tails with every other v replaced by ~v: mix(~v) ==
+    # mix(v), so those rows pass the filter, count in the totals and fail
+    # the exact check
+    flipped = []
+    for (tv, tm), (vcol, _extra) in zip(wargs[2], wargs[4]):
+        tv = tv.clone()
+        tv[1::2, vcol] = ~tv[1::2, vcol]
+        flipped.append((tv, tm))
+    # a left side whose set (2^15 slots) outgrows a count block's shared memory
+    big_left, big_lmask = rand_table(9000, 2, int(procs.min()), int(procs.max()) + 1)
+    wrap = torch.zeros((1 << 16, 1), dtype=torch.int32, device=dev)
+    wrap_m = torch.ones(1 << 16, dtype=torch.bool, device=dev)
+    r_big, r_big_m = rand_table(20000, 1, int(procs.min()), int(procs.max()) + 1)
+    # (kernel, case, args, kwargs, the regime the wrapper must take)
     cases = [
-        ("probe", "main path (int64 type_pos key)", pargs, pkw),
+        ("probe", "main path (int64 type_pos key)", pargs, pkw, None),
         ("probe", "whole-type window (int32 key_type)",
-         (member.key_type, member.order_by_type, member.targets, tid_member, [], big_cap), cols),
+         (member.key_type, member.order_by_type, member.targets, tid_member, [], big_cap), cols,
+         None),
         ("probe", "total > cap (int32 key_type)",
-         (member.key_type, member.order_by_type, member.targets, tid_member, [], 4096), cols),
-        ("index_join", "main path", iargs, {}),
+         (member.key_type, member.order_by_type, member.targets, tid_member, [], 4096), cols,
+         None),
+        ("index_join", "main path", iargs, {}, None),
         ("index_join", "total > cap",
-         (*iargs[:-1], max(16, int(iargs[-1]) // 8)), {}),
-        ("join_tables", "main path", jargs, {}),
+         (*iargs[:-1], max(16, int(iargs[-1]) // 8)), {}, None),
+        ("join_tables", "main path", jargs, {}, None),
         ("join_tables", "tied keys, total > cap",
-         (left, lmask, procs, ones, ((1, 0),), (0,), 4096), {}),
+         (left, lmask, procs, ones, ((1, 0),), (0,), 4096), {}, None),
         ("join_tables", "empty right", (*jargs[:2], empty_v[:, :1], empty_m,
-                                         jargs[4], jargs[5], jargs[6]), {}),
-        ("anti_join", "main path", aargs, {}),
-        ("anti_join", "tied keys", (left, lmask, procs, ones, ((1, 0),)), {}),
+                                         jargs[4], jargs[5], jargs[6]), {}, None),
+        ("anti_join", "main path", aargs, {}, "shared"),
+        ("anti_join", "tied keys", (left, lmask, procs, ones, ((1, 0),)), {}, "global"),
         ("anti_join", "empty right", (*aargs[:2], empty_v[:, :aargs[2].shape[1]], empty_m,
-                                       aargs[4]), {}),
-        ("multiway", "main path (grounded star)", margs, {}),
-        ("multiway", "whole-type fan-out star", wargs, {}),
-        ("multiway", "tied keys, total > cap",
+                                       aargs[4]), {}, "shared"),
+        ("anti_join", "all-invalid right, valid left",
+         (*aargs[:2], aargs[2], torch.zeros_like(aargs[3]), aargs[4]), {}, "shared"),
+        ("anti_join", "global set (right 20,000 rows)",
+         (left, lmask, r_big, r_big_m, ((1, 0),)), {}, "global"),
+        ("multiway", "main path (grounded star)", margs, {}, "block"),
+        ("multiway", "whole-type fan-out star", wargs, {}, "filter"),
+        ("multiway", "fan-out star, tails with v and ~v", (*wargs[:2], flipped, *wargs[3:]),
+         {}, "filter"),
+        ("multiway", "tied keys, total > cap, survivors in 9 blocks",
          (left, lmask, [(procs, ones), (procs[:4096], ones[:4096])], 1,
-          ((0, ()), (0, ())), 1024), {}),
+          ((0, ()), (0, ())), 1024), {}, "filter"),
         ("multiway", "empty intersection",
-         (left, lmask, [(procs + (1 << 30), ones)], 1, ((0, ()),), 4096), {}),
+         (left, lmask, [(procs + (1 << 30), ones)], 1, ((0, ()),), 4096), {}, "filter"),
         ("multiway", "all-invalid left",
-         (left, torch.zeros_like(lmask), [(procs, ones)], 1, ((0, ()),), 4096), {}),
+         (left, torch.zeros_like(lmask), [(procs, ones)], 1, ((0, ()),), 4096), {}, "filter"),
         ("multiway", "18 tails in one launch",
          (left[:512], lmask[:512], [(procs[:512], ones[:512])] * 18, 1, ((0, ()),) * 18,
-          1024), {}),
+          1024), {}, "filter"),
+        ("multiway", "wraparound: four 2^16-row tails on one key",
+         (wrap[:1], wrap_m[:1], [(wrap, wrap_m)] * 4, 0, ((0, ()),) * 4, 16), {}, "filter"),
+        ("multiway", "30 tails, descriptors in device memory",
+         (left[:512], lmask[:512], [(procs[:512], ones[:512])] * 30, 1, ((0, ()),) * 30,
+          1024), {}, "filter"),
+        ("multiway", "global regime (left 9,000 rows)",
+         (big_left, big_lmask, [(procs, ones), (procs[:4096], ones[:4096])], 1,
+          ((0, ()), (0, ())), 4096), {}, "global"),
     ]
     rows = []
-    for name, case, args, kw in cases:
+    for name, case, args, kw, regime in cases:
         kernel, plain = wrappers[name]
         want = plain(*args, **kw)
         got = kernel(*args, **kw)
         torch.cuda.synchronize()
+        if regime is not None and launch.LAST_REGIME[name] != regime:
+            raise AssertionError(f"{name} [{case}] took regime {launch.LAST_REGIME[name]}, "
+                                 f"not {regime}")
+        device_launches = launch.DEVICE_LAUNCHES[name] if regime else None
         err = max_abs_err(want, got)
         if err != 0:
             raise AssertionError(f"{name} [{case}] differs from its plain version: {err}")
@@ -587,10 +638,18 @@ def phase_kernels(das, gene_name, star, fanout, iters):
             total = int(got.sum())
         n_bytes, n_ops = work_of(name, args, kw, got)
         bound, bound_by = bytes_bound_ms(n_bytes, n_ops)
-        row = {"name": name, "case": case, "max_abs_err": err, "total": total,
+        row = {"name": name, "case": case, "regime": regime,
+               "device_launches": device_launches, "max_abs_err": err, "total": total,
                "ms": cuda_ms(lambda: kernel(*args, **kw), iters),
                "plain_ms": cuda_ms(lambda: plain(*args, **kw), iters),
                "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+        if regime is not None and case.startswith("main path"):
+            if device_launches > (1 if name == "anti_join" else 2):
+                raise AssertionError(f"{name} [{case}]: {device_launches} CUDA launches a call")
+            row["queued_host_ms"], row["queued_card_ms"] = \
+                queued_host_ms(lambda: kernel(*args, **kw))
+            if row["queued_host_ms"] * 10 > row["queued_card_ms"]:
+                raise AssertionError(f"{name} [{case}]: the wrapper waited on the card")
         if name == "anti_join":
             lv, lm, rv, rm, pairs = args
             key_l = mix_columns(lv, tuple(a for a, _ in pairs), lm, SENTINEL_L)
@@ -600,9 +659,6 @@ def phase_kernels(das, gene_name, star, fanout, iters):
             row["window"] = min(int(got[2]), args[-1])
             row["cap"] = args[-1]
         if name == "multiway":
-            if case.startswith("main path"):
-                row["queued_host_ms"], row["queued_card_ms"] = \
-                    queued_host_ms(lambda: kernel(*args, **kw))
             row["left_rows"] = args[0].shape[0]
             row["tail_rows"] = [v.shape[0] for v, _m in args[2]]
             row["cap"] = args[-1]
@@ -652,6 +708,7 @@ def phase_slice(args, das, data, genes, large, small):
     tri_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     launches = dict(LAUNCH_COUNTS)
+    regimes = regime_counts()
     routes = dict(compiler.ROUTE_COUNTS)
     fetches = FETCH_COUNTS["n"] - fetch0
     n_queries = 2 * len(chosen)
@@ -703,7 +760,7 @@ def phase_slice(args, das, data, genes, large, small):
         "member_rows": int(host.member.shape[0]),
         "queries": n_queries, "nonempty_grounded": n_nonempty,
         "p50_ms": p50, "triangle_large_count": tri_count, "triangle_large_ms": tri_ms,
-        "routes": routes, "launches": launches, "host_fetches": fetches,
+        "routes": routes, "launches": launches, "regimes": regimes, "host_fetches": fetches,
         "host_algebra_checked": host_checked + 1, "small_triangle_rows": small_tri,
     })
     return launches
@@ -786,6 +843,7 @@ def phase_planned(das, families):
         }
     torch.cuda.synchronize()
     launches = dict(LAUNCH_COUNTS)
+    regimes = regime_counts()
     routes = dict(compiler.ROUTE_COUNTS)
     snap = planner.snapshot()
     if launches["multiway"] == 0:
@@ -829,7 +887,7 @@ def phase_planned(das, families):
             line[arm] = {"p50_ms": _p50(times), "host_fetches": fetches,
                          "multiway": compiler.ROUTE_COUNTS["fused_multiway"] - r0}
     emit({"phase": "planned", "families": lines, "routes": routes, "planner": snap,
-          "launches": launches})
+          "launches": launches, "regimes": regimes})
     return launches
 
 

@@ -17,7 +17,10 @@ ordered conjunctive query runs:
 
 There is no routing switch: a CUDA tensor goes to the kernel (built at
 first use, see launch.py) or the call raises; a CPU tensor goes to the
-plain PyTorch version beside each wrapper."""
+plain PyTorch version beside each wrapper.  The anti join and the multiway
+join run one of several CUDA designs (regimes) that their C entries pick
+from the shapes alone and report by name, counted in
+`launch.REGIME_COUNTS`."""
 
 from das_tpu_torch.kernels.join import (  # noqa: F401
     anti_join,

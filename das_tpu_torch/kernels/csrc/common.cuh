@@ -140,3 +140,16 @@ cudaError_t das_radix_sort_i64(const int64_t* keys, int64_t n, int64_t* keys_out
                                int64_t* hist, int64_t* hist_incl,
                                int64_t* scan_scratch, int64_t scan_len,
                                cudaStream_t st);
+
+// log2 of the slots of an open-addressing set for n keys: the least
+// bits >= 5 with 2^bits >= 2n (load factor <= 1/2)
+int das_set_bits(int64_t n);
+
+// kernels das_scan_i64 launches for n inputs (for the launch counts the
+// C entries report)
+int das_scan_launches(int64_t n);
+
+// lifts a kernel's dynamic shared memory limit to `bytes`, once per device
+// (done[] holds DAS_MAX_DEVICES flags, one array per kernel)
+#define DAS_MAX_DEVICES 64
+cudaError_t das_smem_attr(const void* kernel, int bytes, bool* done);

@@ -234,7 +234,32 @@ cudaError_t das_radix_sort_i64(const int64_t* keys, int64_t n, int64_t* keys_out
   return cudaGetLastError();
 }
 
+int das_set_bits(int64_t n) {
+  int bits = 5;
+  while ((1ll << bits) < 2 * n) ++bits;
+  return bits;
+}
+
+int das_scan_launches(int64_t n) {
+  if (n <= 0) return 0;
+  const int64_t nb = scan_tiles(n);
+  return nb > 1 ? 2 + das_scan_launches(nb) : 1;
+}
+
+cudaError_t das_smem_attr(const void* kernel, int bytes, bool* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < DAS_MAX_DEVICES && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < DAS_MAX_DEVICES) done[dev] = true;
+  return err;
+}
+
 // ---- C entry points of the primitives (exercised by the card tests) ----------
+
+// the CUDA error's name, for the wrappers' messages
+extern "C" const char* das_error_name(int err) { return cudaGetErrorName((cudaError_t)err); }
 
 extern "C" int das_scan_inclusive_i64(const void* in, void* out, int64_t n, void* scratch,
                                       int64_t scratch_len, void* stream) {

@@ -2,13 +2,15 @@
 
 Replace `das_tpu/kernels/join.py` (`join_tables_impl`, `index_join_impl`,
 `anti_join_impl`).  The CUDA kernels live in `csrc/join_tables.cu`,
-`csrc/index_join.cu` and `csrc/anti_join.cu` (on the shared mix, scan and
-radix sort of `csrc/primitives.cu`).  Their plain PyTorch versions are
-`das_tpu_torch/ops/join.py`'s functions of the same names: taken for CPU
-tensors and held against the kernels on the card."""
+`csrc/index_join.cu` (on the shared mix, scan and radix sort of
+`csrc/primitives.cu`) and `csrc/anti_join.cu` (a hash set, no sort).
+Their plain PyTorch versions are `das_tpu_torch/ops/join.py`'s functions
+of the same names: taken for CPU tensors and held against the kernels on
+the card."""
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -19,7 +21,6 @@ from das_tpu_torch.ops import join as plain
 join_tables_plain = plain.join_tables
 index_join_plain = plain.index_join
 anti_join_plain = plain.anti_join
-
 
 def _check_table(vals, valid, name, dev):
     launch.check(vals, f"{name}_vals", torch.int32, 2, dev)
@@ -114,9 +115,19 @@ def index_join(left_vals, left_valid, keys_sorted, perm, targets, type_key: int,
     return out, ov, tot[0]
 
 
+@functools.lru_cache(maxsize=1024)
+def _pair_arrays(pairs):
+    """(left columns, right columns, count) of the join pairs as C arrays,
+    built once per pairs tuple (the C entries only read them)."""
+    return (launch.int_array([a for a, _ in pairs]), launch.int_array([b for _, b in pairs]),
+            len(pairs))
+
+
 def anti_join(left_vals, left_valid, right_vals, right_valid, pairs):
     """Negation filter: the left validity mask with every row whose mixed
-    join key occurs among the valid right rows cleared (bool [L])."""
+    join key occurs among the valid right rows cleared (bool [L]).  The C
+    entry picks its regime from n_right (csrc/anti_join.cu: `shared`, a set
+    in each block's shared memory, or `global`, a set in device memory)."""
     if not launch.is_cuda(left_vals):
         return anti_join_plain(left_vals, left_valid, right_vals, right_valid, pairs)
     dev = left_vals.device
@@ -124,19 +135,16 @@ def anti_join(left_vals, left_valid, right_vals, right_valid, pairs):
     _check_table(right_vals, right_valid, "right", dev)
     (n_left, kl), (n_right, kr) = left_vals.shape, right_vals.shape
     keep = launch.empty(n_left, torch.bool, dev)
-    s = launch.sort_scratch(n_right, 0, dev)
-    key_l = launch.empty(max(n_left, 1), torch.int64, dev)
+    if not isinstance(pairs, tuple):
+        pairs = tuple(map(tuple, pairs))
     lib = launch.library()
-    with torch.cuda.device(dev):
+    table = launch.scratch(lib.das_anti_join_scratch(n_right), dev)
+    n_launched, regime = launch.launches_out(), launch.regime_out()
+    with launch.on_device(dev):
         err = lib.das_anti_join(
             left_vals.data_ptr(), left_valid.data_ptr(), n_left, kl,
-            right_vals.data_ptr(), right_valid.data_ptr(), n_right, kr,
-            launch.int_array([a for a, _ in pairs]), launch.int_array([b for _, b in pairs]),
-            len(pairs), key_l.data_ptr(), s["key_r"].data_ptr(),
-            s["key_r_sorted"].data_ptr(), s["order"].data_ptr(), s["tmp_keys"].data_ptr(),
-            s["tmp_idx"].data_ptr(), s["hist"].data_ptr(), s["hist_incl"].data_ptr(),
-            s["scan"].data_ptr(), s["scan_len"], keep.data_ptr(), launch.stream_of(dev),
-        )
+            right_vals.data_ptr(), right_valid.data_ptr(), n_right, kr, *_pair_arrays(pairs),
+            launch.ptr(table), keep.data_ptr(), n_launched, regime, launch.stream_of(dev))
     launch.raise_on(err, "anti_join")
-    launch.LAUNCH_COUNTS["anti_join"] += 1
+    launch.count_call("anti_join", regime, n_launched)
     return keep

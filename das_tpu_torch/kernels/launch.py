@@ -9,17 +9,22 @@ build raises; nothing falls back.
 
 `LAUNCH_COUNTS` counts kernel launches by wrapper: each wrapper adds one
 where it launches its kernel on a CUDA tensor, and nowhere else (its plain
-PyTorch version, taken for CPU tensors, does not count)."""
+PyTorch version, taken for CPU tensors, does not count).  A wrapper whose
+kernel has regimes (a design its C entry picks from the shapes alone) also
+adds one to `REGIME_COUNTS[(kernel, regime)]`, and keeps in
+`DEVICE_LAUNCHES[kernel]` and `LAST_REGIME[kernel]` how many CUDA kernels
+its last call launched and in which regime (the C entry reports both)."""
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -33,9 +38,28 @@ LAUNCH_COUNTS: Dict[str, int] = {
 }
 
 
+REGIME_COUNTS: Dict[Tuple[str, str], int] = {
+    ("anti_join", "shared"): 0, ("anti_join", "global"): 0,
+    ("multiway", "block"): 0, ("multiway", "filter"): 0, ("multiway", "global"): 0,
+}
+DEVICE_LAUNCHES: Dict[str, int] = {}
+LAST_REGIME: Dict[str, str] = {}
+
+
 def reset_launch_counts() -> None:
-    for k in LAUNCH_COUNTS:
-        LAUNCH_COUNTS[k] = 0
+    for counts in (LAUNCH_COUNTS, REGIME_COUNTS):
+        for k in counts:
+            counts[k] = 0
+
+
+def count_call(kernel: str, regime, device_launches) -> None:
+    """Record one launched call of a wrapper with regimes, from the
+    out-parameters its C entry wrote (regime_out, launches_out)."""
+    name = regime.value.decode()
+    LAUNCH_COUNTS[kernel] += 1
+    REGIME_COUNTS[(kernel, name)] += 1
+    DEVICE_LAUNCHES[kernel] = int(device_launches.value)
+    LAST_REGIME[kernel] = name
 
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -44,6 +68,7 @@ _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _I64P = ctypes.POINTER(ctypes.c_int64)
+_SP = ctypes.POINTER(ctypes.c_char_p)
 
 #: C entry points and their argument types (pointers and the stream as
 #: c_void_p, so no pointer is ever cut to 32 bits)
@@ -62,18 +87,22 @@ _SIGNATURES = {
         _P, _P, _I64, _I32, _P, _P, _I64, _I32, _IP, _IP, _I32, _IP, _I32, _I64,
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _P, _P, _P,
     ],
+    "das_anti_join_scratch": [_I64],
     "das_anti_join": [
-        _P, _P, _I64, _I32, _P, _P, _I64, _I32, _IP, _IP, _I32,
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _P,
+        _P, _P, _I64, _I32, _P, _P, _I64, _I32, _IP, _IP, _I32, _P, _P, _IP, _SP, _P,
     ],
-    "das_multiway_join": [
+    "das_multiway_scratch": [_I64, _I32, _I64P, _I64],
+    "das_multiway": [
         _P, _P, _I64, _I32, _I32, _I32, _PP, _PP, _I64P, _IP, _IP, _IP, _IP, _I64,
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _IP, _SP, _P,
     ],
-    "das_multiway_tail_bytes": [],
     "das_scan_inclusive_i64": [_P, _P, _I64, _P, _I64, _P],
     "das_argsort_i64": [_P, _I64, _P, _P, _P, _P, _P, _P, _P, _I64, _P],
+    "das_error_name": [_I32],
 }
+#: result types other than the int error code
+_RESTYPES = {"das_anti_join_scratch": _I64, "das_multiway_scratch": _I64,
+             "das_error_name": ctypes.c_char_p}
 
 
 def _sources():
@@ -147,7 +176,7 @@ def library() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             _LIB = lib
         return _LIB
 
@@ -194,17 +223,48 @@ def ptr_array(tensors: Sequence[torch.Tensor]):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
+def launches_out():
+    """The out-parameter a C entry writes its launch count into."""
+    return ctypes.c_int(0)
+
+
+def regime_out():
+    """The out-parameter a C entry writes its regime's name into."""
+    return ctypes.c_char_p()
+
+
+def scratch(nbytes: int, device):
+    """A byte buffer of the size a C entry asked for, or None for 0."""
+    return empty(nbytes, torch.uint8, device) if nbytes > 0 else None
+
+
+def ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def int64_array(values: Sequence[int]):
     return (ctypes.c_int64 * len(values))(*[int(v) for v in values])
 
 
 def stream_of(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of the current stream on `device` (the current device
+    when it names no index), without building a Stream object."""
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
+
+
+def on_device(device):
+    """A context that makes `device` current; no-op when it already is."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def raise_on(err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"das_tpu_torch {what} kernel launch failed: CUDA error {err}")
+        name = library().das_error_name(err).decode()
+        raise RuntimeError(f"das_tpu_torch {what} kernel launch failed: CUDA error {err} ({name})")
 
 
 def scan_scratch(n: int) -> int:

@@ -1,12 +1,20 @@
 """Kernel 5: the k-way star join.
 
-Replaces `das_tpu/kernels/multiway.py` multiway_join_impl.  The CUDA kernel
-lives in `csrc/multiway.cu` (on the mix, scan and radix sort of
-`csrc/primitives.cu`); its plain PyTorch version is
+Replaces `das_tpu/kernels/multiway.py` multiway_join_impl.  The CUDA kernels
+live in `csrc/multiway.cu`; its plain PyTorch version is
 `das_tpu_torch/ops/multiway.py` multiway_join_plain, taken for CPU tensors
-and held against the kernel on the card."""
+and held against the kernel on the card.
+
+Three regimes, which the C entry picks from the shapes alone (never from
+the data) and reports by name: `block` (one launch of one block, everything
+in shared memory), `filter` (the tails filtered by the set of the left's
+mixed keys and the survivors grouped stably, no sort, the set and the bin
+histogram in shared memory) and `global` (the same launches with the set and
+the histograms in device memory)."""
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -14,7 +22,8 @@ from das_tpu_torch.kernels import launch
 from das_tpu_torch.kernels.join import _check_table
 from das_tpu_torch.ops.multiway import multiway_join_plain
 
-#: most columns of one table (csrc/common.cuh DAS_MAXC)
+#: most columns of one table (csrc/common.cuh DAS_MAXC): the C entry reads
+#: each tail's extra columns from a row of this many
 MAX_COLS = 16
 
 
@@ -27,49 +36,46 @@ def multiway_join(left_vals, left_valid, tails, vcol0: int, tail_meta, capacity:
     if not launch.is_cuda(left_vals):
         return multiway_join_plain(left_vals, left_valid, tails, vcol0, tail_meta, capacity)
     dev = left_vals.device
-    _check_table(left_vals, left_valid, "left", dev)
     n_tails = len(tails)
     if n_tails < 1 or len(tail_meta) != n_tails:
         raise ValueError("multiway_join takes at least one tail, each with its meta")
-    tail_meta = tuple((int(v), tuple(int(c) for c in e)) for v, e in tail_meta)
+    _check_table(left_vals, left_valid, "left", dev)
     for t, (tv, tm) in enumerate(tails):
         _check_table(tv, tm, f"tail{t}", dev)
+    tail_meta = tuple((int(v), tuple(int(c) for c in e)) for v, e in tail_meta)
     n_left, kl = left_vals.shape
     if kl > MAX_COLS or any(len(e) > MAX_COLS for _v, e in tail_meta):
         raise ValueError(f"multiway_join takes at most {MAX_COLS} columns per table")
     rows = [tv.shape[0] for tv, _ in tails]
-    k_out = kl + sum(len(e) for _v, e in tail_meta)
-    extras = []
-    for _v, e in tail_meta:
-        extras += list(e) + [0] * (MAX_COLS - len(e))
+    ks, vcols, n_extra, extras, n_extra_cols = _meta_arrays(
+        tail_meta, tuple(tv.shape[1] for tv, _ in tails))
+    k_out = kl + n_extra_cols
     out = launch.empty((capacity, k_out), torch.int32, dev)
     ov = launch.empty(capacity, torch.bool, dev)
     tot = launch.empty(n_tails, torch.int64, dev)
-    s = launch.sort_scratch(max(rows), n_left, dev)
-    n_all = max(sum(rows), 1)
-    key_r = launch.empty(n_all, torch.int64, dev)
-    key_sorted = launch.empty(n_all, torch.int64, dev)
-    order = launch.empty(n_all, torch.int32, dev)
-    key_l = launch.empty(max(n_left, 1), torch.int64, dev)
-    lo = launch.empty(max(n_tails * n_left, 1), torch.int64, dev)
-    cnt = launch.empty(max(n_tails * n_left, 1), torch.int64, dev)
-    run = launch.empty(max(n_left, 1), torch.int64, dev)
-    offsets = launch.empty(max(n_left, 1), torch.int64, dev)
-    lib = launch.library()
-    tail_table = launch.empty(n_tails * lib.das_multiway_tail_bytes(), torch.uint8, dev)
-    with torch.cuda.device(dev):
-        err = lib.das_multiway_join(
-            left_vals.data_ptr(), left_valid.data_ptr(), n_left, kl, int(vcol0), n_tails,
+    rows_c = launch.int64_array(rows)
+    args = (left_vals.data_ptr(), left_valid.data_ptr(), n_left, kl, int(vcol0), n_tails,
             launch.ptr_array([tv for tv, _ in tails]), launch.ptr_array([tm for _, tm in tails]),
-            launch.int64_array(rows), launch.int_array([tv.shape[1] for tv, _ in tails]),
-            launch.int_array([v for v, _e in tail_meta]),
-            launch.int_array([len(e) for _v, e in tail_meta]), launch.int_array(extras),
-            capacity, key_l.data_ptr(), key_r.data_ptr(), key_sorted.data_ptr(),
-            order.data_ptr(), s["tmp_keys"].data_ptr(), s["tmp_idx"].data_ptr(),
-            s["hist"].data_ptr(), s["hist_incl"].data_ptr(), lo.data_ptr(), cnt.data_ptr(),
-            run.data_ptr(), offsets.data_ptr(), s["scan"].data_ptr(), s["scan_len"],
-            tail_table.data_ptr(), out.data_ptr(), ov.data_ptr(), tot.data_ptr(), launch.stream_of(dev),
-        )
+            rows_c, ks, vcols, n_extra, extras, capacity)
+    lib = launch.library()
+    scratch = launch.scratch(lib.das_multiway_scratch(n_left, n_tails, rows_c, capacity), dev)
+    n_launched, regime = launch.launches_out(), launch.regime_out()
+    with launch.on_device(dev):
+        err = lib.das_multiway(*args, launch.ptr(scratch), out.data_ptr(), ov.data_ptr(),
+                               tot.data_ptr(), n_launched, regime, launch.stream_of(dev))
     launch.raise_on(err, "multiway_join")
-    launch.LAUNCH_COUNTS["multiway"] += 1
+    launch.count_call("multiway", regime, n_launched)
     return out, ov, tot
+
+
+@functools.lru_cache(maxsize=1024)
+def _meta_arrays(tail_meta, ks):
+    """The C arrays of a star's static shape: each tail's width, v column,
+    extra-column count and extra columns (padded to MAX_COLS), and the
+    extra columns' total."""
+    extras = []
+    for _v, e in tail_meta:
+        extras += list(e) + [0] * (MAX_COLS - len(e))
+    return (launch.int_array(ks), launch.int_array([v for v, _e in tail_meta]),
+            launch.int_array([len(e) for _v, e in tail_meta]), launch.int_array(extras),
+            sum(len(e) for _v, e in tail_meta))

@@ -166,3 +166,77 @@ def test_multiway_kernel_matches_plain_on_card():
     left, tails, meta = _star(rng, 64, (2,) * 18, 3, 6)
     check(left, tails, meta, 1, 256)
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_regimes_match_plain_on_card():
+    """Every regime of kernels 4 and 5 against the plain versions on the same
+    CUDA tensors, exactly, each call asserted to have taken its regime: the
+    anti join's shared and global sets (all-invalid and empty right sides
+    included), and the multiway block, filter and global regimes, with keys
+    v and ~v (whose mixed keys collide), INT32_MIN / INT32_MAX, masked tail
+    rows equal to a left value, the wraparound shape, 18 tails and 30 tails
+    (more than the kernel parameters hold)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels only run on the GPU")
+    from das_tpu_torch.kernels import launch
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(18)
+
+    def c(x):
+        return _t(x).to(dev)
+
+    def anti(left, right, pairs, regime):
+        args = (c(left[0]), c(left[1]), c(right[0]), c(right[1]), pairs)
+        assert torch.equal(kernels.anti_join_plain(*args), kernels.anti_join(*args))
+        assert launch.LAST_REGIME["anti_join"] == regime
+
+    lv, lm = _table(rng, 3000, 2, 50)
+    for n_r, regime in [(500, "shared"), (8192, "shared"), (20000, "global")]:
+        right = _table(rng, n_r, 2, 50)
+        for pairs in [((0, 0),), ((0, 1), (1, 0))]:
+            anti((lv, lm), right, pairs, regime)
+        anti((lv, lm), (right[0], np.zeros(n_r, bool)), ((0, 0),), regime)
+    anti((lv, lm), (np.zeros((0, 2), np.int32), np.zeros(0, bool)), ((0, 0),), "shared")
+
+    def multiway(left, tails, meta, vcol0, cap, regime):
+        args = ((c(left[0]), c(left[1])), [(c(v), c(m)) for v, m in tails])
+        want = kernels.multiway_join_plain(*args[0], args[1], vcol0, meta, cap)
+        got = kernels.multiway_join(*args[0], args[1], vcol0, meta, cap)
+        for w, g in zip(want, got):
+            assert w.dtype == g.dtype and torch.equal(w, g)
+        assert launch.LAST_REGIME["multiway"] == regime
+        return got
+
+    def colliding(n, k, span, p_valid=0.8):
+        vals, valid = _table(rng, n, k, span, p_valid)
+        vals[:, 0] = np.where(rng.random(n) < 0.5, vals[:, 0], ~vals[:, 0])
+        vals[::97, 0] = np.iinfo(np.int32).min
+        vals[1::97, 0] = np.iinfo(np.int32).max
+        return vals, valid
+
+    meta2 = ((0, (1,)), (0, (1, 2)))
+    for n_left, n_rows, cap, regime in [(128, 72, 64, "block"), (300, 20000, 4096, "filter"),
+                                        (9000, 3000, 4096, "global")]:
+        left = colliding(n_left, 2, 40)
+        tails = [colliding(n_rows, 2, 40), colliding(n_rows // 8, 3, 40)]
+        # masked tail rows that hold a left value
+        tails[0][0][~tails[0][1], 0] = left[0][0, 0]
+        for cap_ in (cap, 16):
+            got = multiway(left, tails, meta2, 0, cap_, regime)
+        assert int(got[2][-1]) > 16
+    n = 1 << 16
+    tail = (np.zeros((n, 1), np.int32), np.ones(n, bool))
+    got = multiway((np.zeros((1, 2), np.int32), np.ones(1, bool)), [tail] * 4,
+                   ((0, ()),) * 4, 0, 16, "filter")
+    assert got[2].tolist() == [1 << 16, 1 << 32, 1 << 48, 0]
+    left, tails, meta = _star(rng, 64, (2,) * 18, 3, 6)
+    multiway(left, tails, meta, 1, 256, "block")
+    left, tails, meta = _star(rng, 512, (2,) * 18, 3, 512)
+    multiway(left, tails, meta, 1, 1024, "filter")
+    left, tails, meta = _star(rng, 40, (2,) * 30, 3, 6)
+    multiway(left, tails, meta, 1, 256, "filter")
+    left, tails, meta = _star(rng, 9000, (2,) * 30, 40, 300)
+    multiway(left, tails, meta, 1, 1024, "global")
+    torch.cuda.synchronize()

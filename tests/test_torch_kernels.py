@@ -16,6 +16,7 @@ from das_tpu.kernels import budget
 from das_tpu.kernels.join import anti_join_impl, index_join_impl, join_tables_impl
 from das_tpu.kernels.probe import probe_term_table_impl
 from das_tpu_torch import kernels
+from das_tpu_torch.ops.join import SENTINEL_L, SENTINEL_R, mix_columns
 
 #: budget under which the shapes below take the grid-chunked layout
 #: (3 chunks of 1024 rows); unset = the default budget's single block
@@ -150,4 +151,39 @@ def test_plain_route_counts_no_launch():
     kernels.join_tables(_t(lv), _t(lm), _t(lv), _t(lm), ((0, 0),), (1,), 64)
     kernels.anti_join(_t(lv), _t(lm), _t(lv), _t(lm), ((0, 0),))
     assert all(v == 0 for v in kernels.LAUNCH_COUNTS.values())
+    from das_tpu_torch.kernels import launch
 
+    assert all(v == 0 for v in launch.REGIME_COUNTS.values())
+
+
+
+def _anti_join_set_mirror(lv, lm, rv, rm, pairs):
+    """The algorithm of csrc/anti_join.cu in Python: a set of the valid
+    right rows' mixed keys, plus the right sentinel once when any right
+    row is invalid; a left row is kept iff it is valid and its mixed key is
+    not in the set.  No sort."""
+    key_l = mix_columns(_t(lv), tuple(a for a, _ in pairs), _t(lm), SENTINEL_L).tolist()
+    key_r = mix_columns(_t(rv), tuple(b for _, b in pairs), _t(rm), SENTINEL_R).tolist()
+    right = {k for k, m in zip(key_r, rm) if m}
+    if not np.all(rm):
+        right.add(SENTINEL_R)
+    return np.array([bool(m) and k not in right for k, m in zip(key_l, lm)], dtype=bool)
+
+
+@pytest.mark.parametrize("n_r,p_valid", [(300, 0.8), (300, 0.0), (0, 0.8), (40, 1.0),
+                                         (9000, 0.8)],
+                         ids=["mixed", "all_invalid_right", "empty_right", "all_valid_right",
+                              "right_past_shared_set"])
+@pytest.mark.parametrize("pairs", [((0, 0),), ((0, 1), (1, 0)), ((1, 1),)],
+                         ids=["one_pair", "two_pairs", "second_column"])
+def test_anti_join_set_mirror_matches_tpu_kernel(n_r, p_valid, pairs):
+    rng = np.random.default_rng(19)
+    lv, lm = _table(rng, 200, 2, 12)
+    lv[:3] = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    rv, rm = _table(rng, n_r, 2, 12, p_valid)
+    want = np.asarray(anti_join_impl(lv, lm, rv, rm, pairs, interpret=True))
+    got = _anti_join_set_mirror(lv, lm, rv, rm, pairs)
+    assert np.array_equal(want, got)
+    if p_valid == 0.0:
+        # only the right sentinel is in the set, which no left key equals
+        assert np.array_equal(got, lm)

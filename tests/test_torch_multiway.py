@@ -48,10 +48,10 @@ def _table(rng, n, k, span, p_valid=0.8):
     return vals, valid
 
 
-def _star(rng, n_left, widths, span, rows=200, vcol0=1):
+def _star(rng, n_left, widths, span, rows=200, vcol0=1, p_left=0.8):
     """A left table and one tail per width; each tail's v column is random
     and every other column is an extra."""
-    left = _table(rng, n_left, 2, span)
+    left = _table(rng, n_left, 2, span, p_left)
     tails, meta = [], []
     for w in widths:
         tails.append(_table(rng, rows, w, span))
@@ -261,3 +261,170 @@ def test_skew_star_settles_in_one_round():
     snap = planner.snapshot()
     assert snap["round0"] == 1 and snap["retries"] == 0
     assert snap["actual_vs_est_ratio"] == 1.0
+
+
+# -- the algorithm of csrc/multiway.cu's regimes, mirrored ---------------
+
+I32_MIN, I32_MAX = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+
+
+def _mix1(v):
+    """The mix of one int32 column (ops/join.py mix_columns, one column)."""
+    x = torch.as_tensor(np.asarray(v)).to(torch.int64)
+    return x ^ (x >> 29)
+
+
+def _filter_group_mirror(left, tails, meta, vcol0, cap):
+    """csrc/multiway.cu's regimes (block, filter, global) in PyTorch: no tail is
+    sorted.  The set of the left's valid mixed v keys gets dense ids; each
+    tail row survives iff it is valid and its mixed key is in the set; the
+    survivors, in (tail, row) order, are grouped stably by the bin
+    id * T + t (what the kernels' count, scan and place passes build); a
+    left row's window in tail t is its bin's run of survivors.  Then the
+    products, totals, offsets and the mixed-radix expansion, which stops at
+    an empty window (that slot is invalid in the reference too)."""
+    lv, lm = _t(left[0]), _t(left[1])
+    n_left, n_tails = lv.shape[0], len(tails)
+    lkey = _mix1(left[0][:, vcol0])
+    keys = torch.unique(lkey[lm])
+    lid = torch.where(lm, torch.searchsorted(keys, lkey), -1)
+    bins, rows = [], []
+    for t, ((tv, tm), (vcol, _e)) in enumerate(zip(tails, meta)):
+        tkey = _mix1(tv[:, vcol])
+        alive = _t(tm) & torch.isin(tkey, keys)
+        bins.append(torch.searchsorted(keys, tkey[alive]) * n_tails + t)
+        rows.append(torch.nonzero(alive).flatten())
+    bins, rows = torch.cat(bins), torch.cat(rows)
+    grouped = rows[torch.argsort(bins, stable=True)]
+    counts = torch.bincount(bins, minlength=max(n_left * n_tails, 1))
+    starts = torch.cumsum(counts, 0) - counts
+    run = torch.ones(n_left, dtype=torch.int64)
+    lo, cnt, totals = [], [], []
+    for t in range(n_tails):
+        b = (lid * n_tails + t).clamp(min=0)
+        c = torch.where(lid >= 0, counts[b], 0)
+        lo.append(starts[b])
+        cnt.append(c)
+        run = run * c
+        totals.append(run.sum())
+    offsets = torch.cumsum(run, 0)
+    total = int(totals[-1])
+    k_out = lv.shape[1] + sum(len(e) for _v, e in meta)
+    out = torch.zeros((cap, k_out), dtype=torch.int32)
+    ov = torch.zeros(cap, dtype=torch.bool)
+    for j in range(min(cap, max(total, 0))):
+        li = min(int(torch.searchsorted(offsets, torch.tensor(j), right=True)), n_left - 1)
+        rem = j - (int(offsets[li]) - int(run[li]))
+        picked = [None] * n_tails
+        valid = bool(lm[li])
+        for t in range(n_tails - 1, -1, -1):
+            c = int(cnt[t][li])
+            off, rem = rem % max(c, 1), rem // max(c, 1)
+            if not valid or c == 0:
+                valid = False
+                break
+            r = int(grouped[int(lo[t][li]) + off])
+            tv, tm = tails[t]
+            valid = bool(tm[r]) and tv[r, meta[t][0]] == left[0][li, vcol0]
+            picked[t] = r
+        if valid:
+            out[j] = torch.from_numpy(np.concatenate(
+                [left[0][li]] + [tails[t][0][picked[t], list(meta[t][1])]
+                                 for t in range(n_tails)]).astype(np.int32))
+            ov[j] = True
+    return out, ov, torch.stack(totals)
+
+
+def _mirror_cases():
+    rng = np.random.default_rng(47)
+    cases = {}
+    left, tails, meta, v0 = _star(rng, 60, (2, 3), 9, rows=120)
+    left[0][:, v0] = -left[0][:, v0] - 1
+    left[0][:4, v0] = I32_MIN, I32_MAX, I32_MIN, -1
+    for v, _m in tails:
+        v[:, :] = -v - 1
+        v[:6] = I32_MIN
+        v[6:12] = I32_MAX
+    cases["negative_and_extreme_v"] = (left, tails, meta, v0, 4096)
+    left, tails, meta, v0 = _star(rng, 50, (2, 2), 6)
+    for v, m in tails:
+        v[~m, meta[0][0]] = left[0][0, v0]   # masked rows that hold a left value
+    cases["masked_rows_equal_a_left_value"] = (left, tails, meta, v0, 4096)
+    left, tails, meta, v0 = _star(rng, 50, (2, 2), 6)
+    for (v, _m), (vcol, _e) in zip(tails, meta):
+        flip = rng.random(v.shape[0]) < 0.5
+        v[flip, vcol] = ~v[flip, vcol]        # mix(~v) == mix(v): keys collide
+    cases["v_and_not_v_collide"] = (left, tails, meta, v0, 4096)
+    left, tails, meta, v0 = _star(rng, 70, (2, 2), 5, p_left=0.5)
+    cases["invalid_left_rows"] = (left, tails, meta, v0, 4096)
+    left, tails, meta, v0 = _star(rng, 40, (2, 2), 5)
+    tails[1] = (tails[1][0] + 100, tails[1][1])
+    cases["zero_count_tail"] = (left, tails, meta, v0, 256)
+    left, tails, meta, v0 = _star(rng, 40, (2, 2, 2), 2, rows=40)
+    cases["ties_past_capacity"] = (left, tails, meta, v0, 100)
+    left, tails, meta, v0 = _star(rng, 40, (4, 3), 5)
+    cases["wide_tails"] = (left, tails, meta, v0, 256)
+    left, tails, meta, v0 = _star(rng, 40, (2,), 5)
+    cases["single_tail"] = (left, tails, meta, v0, 256)
+    left, tails, meta, v0 = _star(rng, 40, (2, 2), 5)
+    cases["empty_intersection"] = (left, [(v + 100, m) for v, m in tails], meta, v0, 256)
+    left, tails, meta, v0 = _star(rng, 30, (2, 2), 5)
+    cases["all_left_invalid"] = ((left[0], left[1] & False), tails, meta, v0, 256)
+    left, tails, meta, v0 = _star(rng, 8, (2,) * 26, 2, rows=4)
+    cases["more_tails_than_kernel_parameters"] = (left, tails, meta, v0, 512)
+    left, tails, meta, v0 = _star(rng, 1, (2, 2), 3, rows=30, p_left=1.0)
+    cases["one_left_row"] = (left, tails, meta, v0, 256)
+    left, tails, meta, v0 = _star(rng, 200, (2, 2), 3, rows=60)
+    cases["many_left_rows_share_a_key"] = (left, tails, meta, v0, 512)
+    return cases
+
+
+MIRROR = _mirror_cases()
+
+
+@pytest.mark.parametrize("name", sorted(MIRROR))
+def test_filter_group_mirror_matches_tpu_kernel(name, monkeypatch):
+    monkeypatch.delenv("DAS_TPU_VMEM_BUDGET", raising=False)
+    left, tails, meta, v0, cap = MIRROR[name]
+    want = multiway_join_impl(left[0], left[1], tails, v0, meta, cap, interpret=True)
+    got = _filter_group_mirror(left, tails, meta, v0, cap)
+    for w, g in zip(want, got):
+        _same(w, g)
+    totals = got[2].tolist()
+    if name == "zero_count_tail":
+        assert totals[1] == 0 and totals[0] > 0
+    if name == "ties_past_capacity":
+        assert totals[-1] > cap
+    if name == "v_and_not_v_collide":
+        # colliding rows count in the totals, then fail the exact check
+        assert totals[-1] > int(got[1].sum())
+
+
+def test_filter_group_mirror_wraparound():
+    """Four tails of 2^16 rows on one key: the product 2^64 wraps to 0."""
+    n = 1 << 16
+    tail = (np.zeros((n, 1), np.int32), np.ones(n, bool))
+    left = (np.zeros((1, 2), np.int32), np.ones(1, bool))
+    out, ov, tot = _filter_group_mirror(left, [tail] * 4, ((0, ()),) * 4, 0, 16)
+    assert tot.tolist() == [1 << 16, 1 << 32, 1 << 48, 0]
+    assert not bool(ov.any())
+
+
+def test_mix_facts_the_filter_rests_on():
+    """mix(~v) == mix(v), and every int32's mix lies in [0, 2^31), below
+    both sentinels (2^63-1, 2^63-2): the two facts that let the multiway
+    kernel filter tails by mixed key instead of sorting them."""
+    from das_tpu.ops.join import _mix_columns
+    from das_tpu_torch.ops.join import SENTINEL_L, SENTINEL_R, mix_columns
+
+    rng = np.random.default_rng(53)
+    v = np.concatenate([rng.integers(I32_MIN, I32_MAX, 4096, endpoint=True),
+                        [I32_MIN, -1, 0, I32_MAX]]).astype(np.int32)
+    ones = torch.ones(v.shape[0], dtype=torch.bool)
+    key = mix_columns(_t(v[:, None]), (0,), ones, SENTINEL_L)
+    assert torch.equal(key, mix_columns(_t(~v[:, None]), (0,), ones, SENTINEL_L))
+    assert torch.equal(key, _mix1(v))
+    assert np.array_equal(key.numpy(), np.asarray(_mix_columns(v[:, None], (0,), np.ones(
+        v.shape[0], bool), SENTINEL_L)))
+    assert int(key.min()) >= 0 and int(key.max()) < 1 << 31
+    assert int(key.max()) < SENTINEL_R < SENTINEL_L
