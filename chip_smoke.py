@@ -15,15 +15,19 @@ Phases, one JSON line each:
                Member tail has >= 2^21 rows, totals past capacity, tied
                keys, an empty side or intersection, an all-invalid left
                or right side, a star of 18 tails, int32 and int64 probe
-               keys, fan-out-sized tails holding v and ~v (equal mixed
-               keys), the int64 wraparound of four 2^16-row tails, and a
-               case for every regime of the anti join (shared, global)
-               and the multiway join (block, filter, global), a star of
-               30 tails (descriptors in device memory), each held
+               keys, a plan's probed terms in one call (the grounded
+               query's, and the grounded and Not queries' together),
+               fan-out-sized tails holding v and ~v (equal mixed keys),
+               the int64 wraparound of four 2^16-row tails, a two-pair
+               sort-merge join key, and a case for every regime of the
+               sort-merge join (block, global), the anti join (shared,
+               global) and the multiway join (block, filter, global), a
+               star of 30 tails (descriptors in device memory), each held
                to the regime named for it; times from CUDA events, the
-               kernels launched per call, and for the main-path call of
-               each kernel with regimes the host time of a call queued
-               behind a sleep kernel (the wrapper must not wait);
+               kernels launched per call (every probe call and every
+               main-path call of a kernel with regimes: 1), and for each
+               such main-path call the host time of a call queued behind
+               a sleep kernel (the wrapper must not wait);
   3. slice   — the main path through the public API: a FlyBase-shaped
                knowledge base (SimplePatternMiner.ipynb cell 0, cut by
                --scale) in DistributedAtomSpace(backend="tensor") on the
@@ -103,10 +107,11 @@ TPU_KERNELS = {
     "multiway": ("das_tpu_torch/kernels/csrc/multiway.cu", "das_tpu/kernels/multiway.py:190"),
 }
 
-#: kernel name -> wrapper attribute of das_tpu_torch.kernels
+#: recorded call -> wrapper attribute of das_tpu_torch.kernels (the executor
+#: probes a plan's terms in one probe_term_tables call)
 WRAPPERS = {
-    "probe": "probe_term_table", "index_join": "index_join", "join_tables": "join_tables",
-    "anti_join": "anti_join", "multiway": "multiway_join",
+    "probe_terms": "probe_term_tables", "index_join": "index_join",
+    "join_tables": "join_tables", "anti_join": "anti_join", "multiway": "multiway_join",
 }
 
 
@@ -159,12 +164,21 @@ def queued_host_ms(fn):
     return host, (time.perf_counter() - t0) * 1e3
 
 
+def flat(out):
+    """The output tensors of a call as one tuple (a multi-term probe returns
+    a list of per-term tuples)."""
+    if isinstance(out, list):
+        return tuple(t for term in out for t in term)
+    return out if isinstance(out, tuple) else (out,)
+
+
 def max_abs_err(want, got) -> int:
     """Largest absolute difference over every output of a call (0 = exact)."""
     import torch
 
-    want = want if isinstance(want, tuple) else (want,)
-    got = got if isinstance(got, tuple) else (got,)
+    want, got = flat(want), flat(got)
+    if len(want) != len(got):
+        raise AssertionError(f"{len(got)} outputs, expected {len(want)}")
     err = 0
     for w, g in zip(want, got):
         if w.shape != g.shape or w.dtype != g.dtype:
@@ -434,11 +448,14 @@ def record_inputs(run):
 def main_path_inputs(das, gene_name, star, fanout):
     """The kernel calls of one grounded query and its Not variant, and the
     multiway calls of one grounded star and one fan-out star, at the
-    capacities their executions settled on (each query runs once first)."""
+    capacities their executions settled on (each query runs once first).
+    "probe_terms_not" is the Not variant's probe call."""
     calls = {}
     for q in (grounded_query(gene_name), grounded_query(gene_name, True)):
         das.query_answer(q)
         for name, call in record_inputs(lambda: das.query_answer(q)).items():
+            if name == "probe_terms" and name in calls:
+                calls["probe_terms_not"] = call
             calls.setdefault(name, call)
     cfg = das.db.config
     mode, cfg.use_multiway = cfg.use_multiway, "on"   # the multiway route, whatever auto says
@@ -461,6 +478,9 @@ def work_of(name, args, kw, out):
     def nb(t):
         return t.numel() * t.element_size()
 
+    if name == "probe" and isinstance(out, list):
+        works = [work_of("probe", tuple(t[:6]), {}, o) for t, o in zip(args[0], out)]
+        return sum(w[0] for w in works), sum(w[1] for w in works)
     if name == "probe":
         ks, perm, targets, _key, _f, cap = args
         window = min(int(out[2]), cap)
@@ -517,13 +537,14 @@ def phase_kernels(das, gene_name, star, fanout, iters):
 
     wrappers = {
         "probe": (kernels.probe_term_table, kernels.probe_term_table_plain),
+        "probe_terms": (kernels.probe_term_tables, kernels.probe_term_tables_plain),
         "index_join": (kernels.index_join, kernels.index_join_plain),
         "join_tables": (kernels.join_tables, kernels.join_tables_plain),
         "anti_join": (kernels.anti_join, kernels.anti_join_plain),
         "multiway": (kernels.multiway_join, kernels.multiway_join_plain),
     }
     main = main_path_inputs(das, gene_name, star, fanout)
-    missing = sorted(set(wrappers) - set(main))
+    missing = sorted(set(wrappers) - {"probe"} - set(main))
     if missing:
         raise AssertionError(f"the main path gave no inputs to {missing}")
 
@@ -539,7 +560,11 @@ def phase_kernels(das, gene_name, star, fanout, iters):
         valid = torch.rand(n, generator=gen) < p_valid
         return (torch.where(valid[:, None], vals, 0).to(dev).contiguous(), valid.to(dev))
 
-    pargs, pkw = main["probe"]
+    terms = main["probe_terms"][0][0]
+    both_terms = list(terms) + list(main["probe_terms_not"][0][0])
+    t0 = terms[0]
+    one_term = (tuple(t0[:6]), dict(var_cols=t0.var_cols, eq_pairs=t0.eq_pairs,
+                                    extra_fixed=t0.extra_fixed))
     iargs = main["index_join"][0]
     jargs = main["join_tables"][0]
     aargs = main["anti_join"][0]
@@ -567,23 +592,39 @@ def phase_kernels(das, gene_name, star, fanout, iters):
     wrap = torch.zeros((1 << 16, 1), dtype=torch.int32, device=dev)
     wrap_m = torch.ones(1 << 16, dtype=torch.bool, device=dev)
     r_big, r_big_m = rand_table(20000, 1, int(procs.min()), int(procs.max()) + 1)
-    # (kernel, case, args, kwargs, the regime the wrapper must take)
+    # a two-pair key: Member rows (gene, process) against a left side that
+    # holds some of them, others with one column changed
+    pairs_r = member.targets[: 1 << 11].contiguous()
+    pairs_l = pairs_r[torch.randperm(pairs_r.shape[0], generator=gen)[:1500].to(dev)].clone()
+    pairs_l[::3, 1] += 1
+    pairs_lm = torch.ones(pairs_l.shape[0], dtype=torch.bool, device=dev)
+    # (wrapper, case, args, kwargs, the regime the wrapper must take); the
+    # kernel is the wrapper's name, "probe" for both probe wrappers
     cases = [
-        ("probe", "main path (int64 type_pos key)", pargs, pkw, None),
+        ("probe_terms", f"main path (the grounded query's {len(terms)} probed terms, one call)",
+         (terms,), {}, "warp_search"),
+        ("probe_terms", f"multi-term call (the grounded and Not queries' {len(both_terms)} "
+         "probed terms)", (both_terms,), {}, "warp_search"),
+        ("probe", f"one term ({t0.sorted_keys.dtype} key)", *one_term, "warp_search"),
         ("probe", "whole-type window (int32 key_type)",
          (member.key_type, member.order_by_type, member.targets, tid_member, [], big_cap), cols,
-         None),
+         "warp_search"),
         ("probe", "total > cap (int32 key_type)",
          (member.key_type, member.order_by_type, member.targets, tid_member, [], 4096), cols,
-         None),
+         "warp_search"),
         ("index_join", "main path", iargs, {}, None),
         ("index_join", "total > cap",
          (*iargs[:-1], max(16, int(iargs[-1]) // 8)), {}, None),
-        ("join_tables", "main path", jargs, {}, None),
-        ("join_tables", "tied keys, total > cap",
-         (left, lmask, procs, ones, ((1, 0),), (0,), 4096), {}, None),
+        ("join_tables", "main path", jargs, {}, "block"),
+        ("join_tables", "tied keys, total > cap (right: 65,536 procs rows)",
+         (left, lmask, procs, ones, ((1, 0),), (0,), 4096), {}, "global"),
         ("join_tables", "empty right", (*jargs[:2], empty_v[:, :1], empty_m,
-                                         jargs[4], jargs[5], jargs[6]), {}, None),
+                                         jargs[4], jargs[5], jargs[6]), {}, "block"),
+        ("join_tables", "two-pair key",
+         (pairs_l, pairs_lm, pairs_r, ones[: pairs_r.shape[0]], ((0, 0), (1, 1)), (), 4096),
+         {}, "block"),
+        ("join_tables", "all-invalid left",
+         (jargs[0], torch.zeros_like(jargs[1]), *jargs[2:]), {}, "block"),
         ("anti_join", "main path", aargs, {}, "shared"),
         ("anti_join", "tied keys", (left, lmask, procs, ones, ((1, 0),)), {}, "global"),
         ("anti_join", "empty right", (*aargs[:2], empty_v[:, :aargs[2].shape[1]], empty_m,
@@ -616,8 +657,9 @@ def phase_kernels(das, gene_name, star, fanout, iters):
           ((0, ()), (0, ())), 4096), {}, "global"),
     ]
     rows = []
-    for name, case, args, kw, regime in cases:
-        kernel, plain = wrappers[name]
+    for wrapper, case, args, kw, regime in cases:
+        kernel, plain = wrappers[wrapper]
+        name = "probe" if wrapper.startswith("probe") else wrapper
         want = plain(*args, **kw)
         got = kernel(*args, **kw)
         torch.cuda.synchronize()
@@ -632,8 +674,12 @@ def phase_kernels(das, gene_name, star, fanout, iters):
             total = int(got[2][-1])
             if case.startswith("tied") and total <= args[-1]:
                 raise AssertionError(f"multiway [{case}]: total {total} is not past capacity")
+        elif wrapper == "probe_terms":
+            total = sum(int(g[2]) for g in got)
         elif name in ("probe", "index_join", "join_tables"):
             total = int(got[2])
+            if "total > cap" in case and total <= args[-1]:
+                raise AssertionError(f"{name} [{case}]: total {total} is not past capacity")
         else:
             total = int(got.sum())
         n_bytes, n_ops = work_of(name, args, kw, got)
@@ -643,8 +689,10 @@ def phase_kernels(das, gene_name, star, fanout, iters):
                "ms": cuda_ms(lambda: kernel(*args, **kw), iters),
                "plain_ms": cuda_ms(lambda: plain(*args, **kw), iters),
                "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+        if name == "probe" and device_launches != 1:
+            raise AssertionError(f"probe [{case}]: {device_launches} CUDA launches a call")
         if regime is not None and case.startswith("main path"):
-            if device_launches > (1 if name == "anti_join" else 2):
+            if device_launches != 1:
                 raise AssertionError(f"{name} [{case}]: {device_launches} CUDA launches a call")
             row["queued_host_ms"], row["queued_card_ms"] = \
                 queued_host_ms(lambda: kernel(*args, **kw))
@@ -655,8 +703,15 @@ def phase_kernels(das, gene_name, star, fanout, iters):
             key_l = mix_columns(lv, tuple(a for a, _ in pairs), lm, SENTINEL_L)
             key_r = mix_columns(rv, tuple(b for _, b in pairs), rm, SENTINEL_R)
             row["library_ms"] = cuda_ms(lambda: torch.isin(key_l, key_r), iters)
-        if name == "probe":
+        if wrapper == "probe_terms":
+            row["terms"] = len(args[0])
+            row["window"] = [min(int(g[2]), t.capacity) for t, g in zip(args[0], got)]
+            row["cap"] = [t.capacity for t in args[0]]
+        elif name == "probe":
             row["window"] = min(int(got[2]), args[-1])
+            row["cap"] = args[-1]
+        if name == "join_tables":
+            row["left_rows"], row["right_rows"] = args[0].shape[0], args[2].shape[0]
             row["cap"] = args[-1]
         if name == "multiway":
             row["left_rows"] = args[0].shape[0]

@@ -2,9 +2,9 @@
 //
 // Replaces the in-kernel primitives of das_tpu/kernels/common.py
 // (unrolled_search, select_columns) and the key mix of das_tpu/ops/join.py
-// (_mix_columns), and declares the two device-wide primitives the joins
-// build on (primitives.cu): an int64 inclusive scan and a stable LSD radix
-// sort of int64 keys carrying an int32 payload.
+// (_mix_columns), and declares the device-wide primitive the joins build
+// on (primitives.cu): an int64 inclusive scan.  Nothing sorts: the joins
+// group rows stably by key (group.cuh) instead.
 //
 // Every entry point has a plain C interface (loaded with ctypes), launches
 // on the stream it is given, allocates nothing (the Python wrapper passes
@@ -114,10 +114,6 @@ __device__ __forceinline__ int64_t das_slot_row(const int64_t* offsets, const in
 
 // ---- device-wide primitives (primitives.cu) --------------------------------
 
-// key[i] = valid[i] ? mix(vals[i, cols]) : sentinel, for a [n, k] table
-void das_mix(const int32_t* vals, int64_t n, int k, const uint8_t* valid,
-             DasCols cols, int64_t sentinel, int64_t* key, cudaStream_t st);
-
 // int64 scratch elements das_scan_i64 needs for n inputs: one block sum per
 // 2048-element tile, for every level of the block-sum recursion
 int64_t das_scan_scratch(int64_t n);
@@ -126,20 +122,6 @@ int64_t das_scan_scratch(int64_t n);
 // Block scan of each tile, then a scan of the tile sums, then an add pass.
 cudaError_t das_scan_i64(const int64_t* in, int64_t* out, int64_t n,
                          int64_t* scratch, int64_t scratch_len, cudaStream_t st);
-
-// blocks (4096-element tiles) of one radix pass
-int64_t das_sort_tiles(int64_t n);
-
-// stable ascending sort of int64 keys: keys_out = sorted keys, idx_out =
-// the original position of each (a stable argsort).  LSD radix sort, 8
-// passes of 8 bits over sign-flipped keys.  tmp_keys/tmp_idx hold n
-// elements, hist and hist_incl 256 * das_sort_tiles(n) each, scan_scratch
-// das_scan_scratch(256 * das_sort_tiles(n)).
-cudaError_t das_radix_sort_i64(const int64_t* keys, int64_t n, int64_t* keys_out,
-                               int32_t* idx_out, int64_t* tmp_keys, int32_t* tmp_idx,
-                               int64_t* hist, int64_t* hist_incl,
-                               int64_t* scan_scratch, int64_t scan_len,
-                               cudaStream_t st);
 
 // log2 of the slots of an open-addressing set for n keys: the least
 // bits >= 5 with 2^bits >= 2n (load factor <= 1/2)

@@ -1,12 +1,12 @@
 """Kernels 2-4: sort-merge join, index join and anti join.
 
 Replace `das_tpu/kernels/join.py` (`join_tables_impl`, `index_join_impl`,
-`anti_join_impl`).  The CUDA kernels live in `csrc/join_tables.cu`,
-`csrc/index_join.cu` (on the shared mix, scan and radix sort of
-`csrc/primitives.cu`) and `csrc/anti_join.cu` (a hash set, no sort).
-Their plain PyTorch versions are `das_tpu_torch/ops/join.py`'s functions
-of the same names: taken for CPU tensors and held against the kernels on
-the card."""
+`anti_join_impl`).  The CUDA kernels live in `csrc/join_tables.cu` (stable
+grouping by key, no sort: csrc/group.cuh), `csrc/index_join.cu` (on the
+scan of `csrc/primitives.cu`) and `csrc/anti_join.cu` (a hash set, no
+sort).  Their plain PyTorch versions are `das_tpu_torch/ops/join.py`'s
+functions of the same names: taken for CPU tensors and held against the
+kernels on the card."""
 
 from __future__ import annotations
 
@@ -32,9 +32,12 @@ def _check_table(vals, valid, name, dev):
 def join_tables(left_vals, left_valid, right_vals, right_valid,
                 pairs: Tuple[Tuple[int, int], ...], right_extra: Tuple[int, ...],
                 capacity: int):
-    """Sort-merge equi-join of two binding tables.  Returns
-    (out_vals[capacity, kL+len(right_extra)] int32, out_valid bool,
-    total int64 0-d); total is exact, even past capacity."""
+    """Equi-join of two binding tables (the sort-merge join of the
+    reference; no sort here).  Returns (out_vals[capacity,
+    kL+len(right_extra)] int32, out_valid bool, total int64 0-d); total is
+    exact, even past capacity.  The C entry picks its regime from the
+    shapes (csrc/join_tables.cu: `block`, one launch of one block, or
+    `global`, the grouping engine's grid passes)."""
     if not launch.is_cuda(left_vals):
         return join_tables_plain(left_vals, left_valid, right_vals, right_valid,
                                  pairs, right_extra, capacity)
@@ -42,31 +45,21 @@ def join_tables(left_vals, left_valid, right_vals, right_valid,
     _check_table(left_vals, left_valid, "left", dev)
     _check_table(right_vals, right_valid, "right", dev)
     (n_left, kl), (n_right, kr) = left_vals.shape, right_vals.shape
-    k_out = kl + len(right_extra)
-    out = launch.empty((capacity, k_out), torch.int32, dev)
-    ov = launch.empty(capacity, torch.bool, dev)
-    tot = launch.empty(1, torch.int64, dev)
-    s = launch.sort_scratch(n_right, n_left, dev)
-    key_l = launch.empty(max(n_left, 1), torch.int64, dev)
-    lo = launch.empty(max(n_left, 1), torch.int64, dev)
-    cnt = launch.empty(max(n_left, 1), torch.int64, dev)
-    offsets = launch.empty(max(n_left, 1), torch.int64, dev)
+    pairs, right_extra = _as_tuples(pairs), tuple(right_extra)
+    out, ov, tot = launch.carve(dev, (((capacity, kl + len(right_extra)), torch.int32),
+                                      ((capacity,), torch.bool), ((), torch.int64)))
     lib = launch.library()
-    with torch.cuda.device(dev):
+    scratch = launch.scratch(lib.das_join_tables_scratch(n_left, n_right, capacity), dev)
+    n_launched, regime = launch.launches_out(), launch.regime_out()
+    with launch.on_device(dev):
         err = lib.das_join_tables(
             left_vals.data_ptr(), left_valid.data_ptr(), n_left, kl,
-            right_vals.data_ptr(), right_valid.data_ptr(), n_right, kr,
-            launch.int_array([a for a, _ in pairs]), launch.int_array([b for _, b in pairs]),
-            len(pairs), launch.int_array(right_extra), len(right_extra), capacity,
-            key_l.data_ptr(), s["key_r"].data_ptr(), s["key_r_sorted"].data_ptr(),
-            s["order"].data_ptr(), s["tmp_keys"].data_ptr(), s["tmp_idx"].data_ptr(),
-            s["hist"].data_ptr(), s["hist_incl"].data_ptr(), lo.data_ptr(), cnt.data_ptr(),
-            offsets.data_ptr(), s["scan"].data_ptr(), s["scan_len"],
-            out.data_ptr(), ov.data_ptr(), tot.data_ptr(), launch.stream_of(dev),
-        )
+            right_vals.data_ptr(), right_valid.data_ptr(), n_right, kr, *_pair_arrays(pairs),
+            *_col_array(right_extra), capacity, launch.ptr(scratch), out.data_ptr(),
+            ov.data_ptr(), tot.data_ptr(), n_launched, regime, launch.stream_of(dev))
     launch.raise_on(err, "join_tables")
-    launch.LAUNCH_COUNTS["join_tables"] += 1
-    return out, ov, tot[0]
+    launch.count_call("join_tables", regime, n_launched)
+    return out, ov, tot
 
 
 def index_join(left_vals, left_valid, keys_sorted, perm, targets, type_key: int,
@@ -123,6 +116,16 @@ def _pair_arrays(pairs):
             len(pairs))
 
 
+@functools.lru_cache(maxsize=1024)
+def _col_array(cols):
+    """(columns, count) as a C array, built once per columns tuple."""
+    return launch.int_array(cols), len(cols)
+
+
+def _as_tuples(pairs):
+    return pairs if isinstance(pairs, tuple) else tuple(map(tuple, pairs))
+
+
 def anti_join(left_vals, left_valid, right_vals, right_valid, pairs):
     """Negation filter: the left validity mask with every row whose mixed
     join key occurs among the valid right rows cleared (bool [L]).  The C
@@ -135,8 +138,7 @@ def anti_join(left_vals, left_valid, right_vals, right_valid, pairs):
     _check_table(right_vals, right_valid, "right", dev)
     (n_left, kl), (n_right, kr) = left_vals.shape, right_vals.shape
     keep = launch.empty(n_left, torch.bool, dev)
-    if not isinstance(pairs, tuple):
-        pairs = tuple(map(tuple, pairs))
+    pairs = _as_tuples(pairs)
     lib = launch.library()
     table = launch.scratch(lib.das_anti_join_scratch(n_right), dev)
     n_launched, regime = launch.launches_out(), launch.regime_out()

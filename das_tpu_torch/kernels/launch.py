@@ -19,7 +19,9 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
+import math
 import os
 import subprocess
 import threading
@@ -29,6 +31,9 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 CSRC = Path(__file__).with_name("csrc")
+#: most columns of a table and most var_cols / fixed positions / eq pairs of
+#: a probed term (csrc/common.cuh DAS_MAXC)
+MAX_COLS = 16
 BUILD_DIR = Path(__file__).with_name("build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -39,6 +44,7 @@ LAUNCH_COUNTS: Dict[str, int] = {
 
 
 REGIME_COUNTS: Dict[Tuple[str, str], int] = {
+    ("probe", "warp_search"): 0, ("join_tables", "block"): 0, ("join_tables", "global"): 0,
     ("anti_join", "shared"): 0, ("anti_join", "global"): 0,
     ("multiway", "block"): 0, ("multiway", "filter"): 0, ("multiway", "global"): 0,
 }
@@ -73,19 +79,16 @@ _SP = ctypes.POINTER(ctypes.c_char_p)
 #: C entry points and their argument types (pointers and the stream as
 #: c_void_p, so no pointer is ever cut to 32 bits)
 _SIGNATURES = {
-    "das_probe_term_table": [
-        _P, _I32, _I64, _I64, _P, _P, _I64, _I32, _I64,
-        _IP, _I32, _IP, _IP, _I32, _IP, _IP, _I32,
-        _P, _P, _P, _P, _P,
-    ],
+    "das_probe_terms": [_I32, ctypes.c_char_p, _IP, _SP, _P],
     "das_index_join": [
         _P, _P, _I64, _I32, _I32, _I64, _P, _I64, _P, _P, _I64, _I32,
         _IP, _IP, _I32, _IP, _I32, _I64,
         _P, _P, _P, _P, _I64, _P, _P, _P, _P,
     ],
+    "das_join_tables_scratch": [_I64, _I64, _I64],
     "das_join_tables": [
         _P, _P, _I64, _I32, _P, _P, _I64, _I32, _IP, _IP, _I32, _IP, _I32, _I64,
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _P, _P, _P,
+        _P, _P, _P, _P, _IP, _SP, _P,
     ],
     "das_anti_join_scratch": [_I64],
     "das_anti_join": [
@@ -97,12 +100,11 @@ _SIGNATURES = {
         _P, _P, _P, _P, _IP, _SP, _P,
     ],
     "das_scan_inclusive_i64": [_P, _P, _I64, _P, _I64, _P],
-    "das_argsort_i64": [_P, _I64, _P, _P, _P, _P, _P, _P, _P, _I64, _P],
     "das_error_name": [_I32],
 }
 #: result types other than the int error code
 _RESTYPES = {"das_anti_join_scratch": _I64, "das_multiway_scratch": _I64,
-             "das_error_name": ctypes.c_char_p}
+             "das_join_tables_scratch": _I64, "das_error_name": ctypes.c_char_p}
 
 
 def _sources():
@@ -280,27 +282,35 @@ def scan_scratch(n: int) -> int:
     return total
 
 
-def sort_tiles(n: int) -> int:
-    return -(-n // 4096)
-
-
 def empty(shape, dtype, device) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device=device)
 
 
-def sort_scratch(n_right: int, n_left: int, device):
-    """The radix sort's buffers for n_right keys plus one scan scratch big
-    enough for both its histogram scan and an n_left offsets scan."""
-    tiles = sort_tiles(n_right)
-    scan_len = max(scan_scratch(256 * tiles), scan_scratch(n_left), 1)
-    return dict(
-        key_r=empty(max(n_right, 1), torch.int64, device),
-        key_r_sorted=empty(max(n_right, 1), torch.int64, device),
-        order=empty(max(n_right, 1), torch.int32, device),
-        tmp_keys=empty(max(n_right, 1), torch.int64, device),
-        tmp_idx=empty(max(n_right, 1), torch.int32, device),
-        hist=empty(max(256 * tiles, 1), torch.int64, device),
-        hist_incl=empty(max(256 * tiles, 1), torch.int64, device),
-        scan=empty(scan_len, torch.int64, device),
-        scan_len=scan_len,
-    )
+@functools.lru_cache(maxsize=1024)
+def _layout(specs):
+    """(bytes, [(dtype, shape, strides, element offset)]) of `carve`'s
+    buffer for one specs tuple, computed once per tuple."""
+    views, total = [], 0
+    for shape, dtype in specs:
+        strides = [1] * len(shape)
+        for i in range(len(shape) - 2, -1, -1):
+            strides[i] = strides[i + 1] * shape[i + 1]
+        views.append((dtype, shape, tuple(strides), total // dtype.itemsize))
+        total += -(-math.prod(shape) * dtype.itemsize // 16) * 16
+    return total, views
+
+
+def carve(device, specs):
+    """One allocation for several outputs: a view per (shape, dtype) of
+    `specs` (a tuple), each starting on a 16-byte boundary of one byte
+    buffer."""
+    total, views = _layout(specs)
+    buf = empty(total, torch.uint8, device)
+    typed = {torch.uint8: buf}
+    out = []
+    for dtype, shape, strides, offset in views:
+        base = typed.get(dtype)
+        if base is None:
+            base = typed[dtype] = buf.view(dtype)
+        out.append(base.as_strided(shape, strides, offset))
+    return out

@@ -22,9 +22,8 @@ from das_tpu_torch.kernels import launch
 from das_tpu_torch.kernels.join import _check_table
 from das_tpu_torch.ops.multiway import multiway_join_plain
 
-#: most columns of one table (csrc/common.cuh DAS_MAXC): the C entry reads
-#: each tail's extra columns from a row of this many
-MAX_COLS = 16
+#: the C entry reads each tail's extra columns from a row of this many
+MAX_COLS = launch.MAX_COLS
 
 
 def multiway_join(left_vals, left_valid, tails, vcol0: int, tail_meta, capacity: int):

@@ -313,6 +313,20 @@ def _scalar(x) -> torch.Tensor:
     return x.to(torch.int64).reshape(())
 
 
+def probe_terms(sig, bucket_arrays, keys, fixed_vals, which):
+    """The term tables (vals, mask, range count) of the terms `which` of a
+    plan, probed in ONE call (one launch on the card): no probe depends on
+    another."""
+    terms = []
+    for i in which:
+        t = sig.terms[i]
+        sorted_keys, perm, targets, _tid = bucket_arrays[i]
+        terms.append(kernels.ProbeTerm(sorted_keys, perm, targets, keys[i], fixed_vals[i],
+                                       sig.term_caps[i], t.var_cols, t.eq_pairs,
+                                       t.extra_fixed))
+    return kernels.probe_term_tables(terms)
+
+
 def run_conj(sig: FusedPlanSig, bucket_arrays, keys, fixed_vals):
     """Run ONE conjunction — every probe, join and anti-join — as eager
     launches on the current stream.  Returns (acc_vals, acc_valid, stats)
@@ -331,7 +345,11 @@ def run_conj(sig: FusedPlanSig, bucket_arrays, keys, fixed_vals):
     tables = {}
     term_ranges = []
     pos_count = {}
-    for i, t in enumerate(sig.terms):
+    probed = [i for i in range(len(sig.terms)) if i not in index_right]
+    # no per-term dedup: every route pins the link type, so distinct
+    # candidate links always yield distinct variable tuples
+    tables.update(zip(probed, probe_terms(sig, bucket_arrays, keys, fixed_vals, probed)))
+    for i in range(len(sig.terms)):
         if i in index_right:
             # index-join right side: never materialized; its candidate
             # count (for the empty-positive-term rule) is the type's range
@@ -343,13 +361,7 @@ def run_conj(sig: FusedPlanSig, bucket_arrays, keys, fixed_vals):
             tables[i] = None
             term_ranges.append(zero)
             continue
-        sorted_keys, perm, targets, _tid = bucket_arrays[i]
-        vals, mask, rng = kernels.probe_term_table(
-            sorted_keys, perm, targets, keys[i], fixed_vals[i], sig.term_caps[i],
-            var_cols=t.var_cols, eq_pairs=t.eq_pairs, extra_fixed=t.extra_fixed,
-        )
-        # no per-term dedup: every route pins the link type, so distinct
-        # candidate links always yield distinct variable tuples
+        vals, mask, rng = tables[i]
         tables[i] = (vals, mask)
         pos_count[i] = mask.sum()
         term_ranges.append(_scalar(rng))
@@ -473,12 +485,8 @@ def run_exact(sig: FusedExactSig, bucket_arrays, keys, fixed_vals):
 
     tables = {}
     term_ranges = []
-    for i, t in enumerate(sig.terms):
-        sorted_keys, perm, targets, _tid = bucket_arrays[i]
-        vals, mask, rng = kernels.probe_term_table(
-            sorted_keys, perm, targets, keys[i], fixed_vals[i], sig.term_caps[i],
-            var_cols=t.var_cols, eq_pairs=t.eq_pairs, extra_fixed=t.extra_fixed,
-        )
+    probed = probe_terms(sig, bucket_arrays, keys, fixed_vals, range(len(sig.terms)))
+    for i, (vals, mask, rng) in enumerate(probed):
         tables[i] = (vals, mask)
         term_ranges.append(_scalar(rng))
     pos_counts = [_scalar(tables[i][1].sum()) for i in positives]

@@ -1,8 +1,7 @@
 """The hand-written CUDA kernels of das_tpu_torch on the card.
 
-Builds the kernels and holds each one — and the scan and radix sort under
-the joins — against its plain PyTorch version on the same CUDA tensors,
-exactly.  Without a card the test skips.  It imports no JAX, so it runs on
+Builds the kernels and holds each one — and the scan under the joins —
+against its plain PyTorch version on the same CUDA tensors, exactly.  Without a card the test skips.  It imports no JAX, so it runs on
 the GPU machine alone:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -p no:cacheprovider
@@ -51,8 +50,8 @@ PROBE_CASES = [
 
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_on_card():
-    """Every hand-written kernel, and the scan and radix sort under them,
-    against the plain PyTorch versions on the same CUDA tensors: exact."""
+    """Every hand-written kernel, and the scan under the joins, against the
+    plain PyTorch versions on the same CUDA tensors: exact."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the hand-written kernels only run on the GPU")
     from das_tpu_torch.kernels import launch
@@ -63,20 +62,8 @@ def test_cuda_kernels_match_plain_on_card():
     def c(x):
         return _t(x).to(dev)
 
-    # the primitives: stable argsort with ties and both signs, and the scan
+    # the scan
     lib = launch.library()
-    n = 70_000
-    keys = c(rng.integers(-50, 50, n).astype(np.int64) * (2**40))
-    s = launch.sort_scratch(n, 0, dev)
-    err = lib.das_argsort_i64(
-        keys.data_ptr(), n, s["key_r_sorted"].data_ptr(), s["order"].data_ptr(),
-        s["tmp_keys"].data_ptr(), s["tmp_idx"].data_ptr(), s["hist"].data_ptr(),
-        s["hist_incl"].data_ptr(), s["scan"].data_ptr(), s["scan_len"],
-        launch.stream_of(dev))
-    launch.raise_on(err, "argsort")
-    order = torch.argsort(keys, stable=True)
-    assert torch.equal(s["order"][:n].long(), order)
-    assert torch.equal(s["key_r_sorted"][:n], keys[order])
     cnt = c(rng.integers(0, 5, 5_000_000).astype(np.int64))
     out = torch.empty_like(cnt)
     scratch_len = launch.scan_scratch(cnt.numel())
@@ -239,4 +226,86 @@ def test_regimes_match_plain_on_card():
     multiway(left, tails, meta, 1, 256, "filter")
     left, tails, meta = _star(rng, 9000, (2,) * 30, 40, 300)
     multiway(left, tails, meta, 1, 1024, "global")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_probe_and_join_match_plain_on_card():
+    """Kernels 1 and 2 (csrc/probe.cu, csrc/join_tables.cu) against their
+    plain versions on the same CUDA tensors, exactly, each call in its regime
+    with its launch count: 19 probe terms in one call (two launches) with
+    int32 and int64 keys, keys equal to the padding, an empty key column,
+    rows of 0, 1, 2, 4 and 5 columns, extra_fixed and eq_pairs, ragged and
+    past-count capacities; the sort-merge join's block and global regimes
+    with ties, one and two pairs, all-invalid sides, empty sides, one left
+    row and totals past capacity."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels only run on the GPU")
+    from das_tpu_torch.kernels import launch
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20)
+
+    def c(x):
+        return _t(x).to(dev)
+
+    cols = {dt: tuple(c(x) for x in _probe_inputs(rng, 2000, 6, dt, 3))
+            for dt in (np.int32, np.int64)}
+    #: (key dtype, var_cols, eq_pairs, extra_fixed)
+    shapes = [(np.int32, (0, 1), (), ()), (np.int64, (1, 2, 3, 4), (), (0,)),
+              (np.int64, (0, 1), ((0, 2),), ()), (np.int32, (), (), ()),
+              (np.int64, (0,), (), ()), (np.int32, (0, 1, 2, 3, 5), ((1, 4),), (2,))]
+    terms = []
+    for n in range(18):
+        dt, var_cols, eq_pairs, fixed = shapes[n % len(shapes)]
+        key = n % 4 if n % 5 else int(np.iinfo(dt).max)
+        terms.append(kernels.ProbeTerm(*cols[dt], key, [int(rng.integers(0, 6)) for _ in fixed],
+                                       (64, 3001, 4096)[n % 3], var_cols, eq_pairs, fixed))
+    terms.append(kernels.ProbeTerm(c(np.zeros(0, np.int64)), c(np.zeros(0, np.int32)),
+                                   cols[np.int64][2], 1, [], 64, (0, 1), (), ()))
+    want = kernels.probe_term_tables_plain(terms)
+    got = kernels.probe_term_tables(terms)
+    assert launch.LAST_REGIME["probe"] == "warp_search"
+    assert launch.DEVICE_LAUNCHES["probe"] == 2
+    for w3, g3 in zip(want, got):
+        for w, g in zip(w3, g3):
+            assert w.dtype == g.dtype and w.shape == g.shape and torch.equal(w, g)
+    assert any(int(g[2]) > t.capacity for t, g in zip(terms, got))
+    t = terms[1]
+    one = kernels.probe_term_table(*t[:6], var_cols=t.var_cols, eq_pairs=t.eq_pairs,
+                                   extra_fixed=t.extra_fixed)
+    assert launch.DEVICE_LAUNCHES["probe"] == 1
+    assert all(torch.equal(w, g) for w, g in zip(want[1], one))
+
+    def join(left, right, pairs, extra, cap, regime):
+        args = (c(left[0]), c(left[1]), c(right[0]), c(right[1]), pairs, extra, cap)
+        want = kernels.join_tables_plain(*args)
+        got = kernels.join_tables(*args)
+        for w, g in zip(want, got):
+            assert w.dtype == g.dtype and w.shape == g.shape and torch.equal(w, g)
+        assert launch.LAST_REGIME["join_tables"] == regime
+        return int(got[2]), launch.DEVICE_LAUNCHES["join_tables"]
+
+    left, right = _table(rng, 3000, 2, 50), _table(rng, 40, 3, 50)
+    one_pair, two_pairs = ((0, 0),), ((0, 1), (1, 0))
+    none = lambda tb: (tb[0], tb[1] & False)   # noqa: E731
+    for cap in (4096, 3001, 64):
+        total, n = join(left, right, one_pair, (1, 2), cap, "block")
+        assert n == 1 and (total > cap) == (cap == 64)
+        join(left, right, two_pairs, (2,), cap, "block")
+    join(none(left), right, one_pair, (1,), 4096, "block")
+    join(left, none(right), two_pairs, (), 4096, "block")
+    join((left[0][:1], np.ones(1, bool)), right, one_pair, (1,), 64, "block")
+    assert join(left, (right[0][:0], right[1][:0]), one_pair, (1,), 64, "block") == (0, 1)
+    assert join((left[0][:0], left[1][:0]), right, one_pair, (1,), 64, "block") == (0, 1)
+    big_right = _table(rng, 65536, 2, 3000)      # past the block regime's shared memory
+    for cap in (1 << 16, 512):
+        total, n = join(left, big_right, one_pair, (1,), cap, "global")
+        assert n <= 11 and (total > cap) == (cap == 512)
+    join(none(left), big_right, one_pair, (1,), 4096, "global")
+    join(left, none(big_right), two_pairs, (), 4096, "global")
+    big_left = _table(rng, 30000, 2, 50)
+    join(big_left, right, one_pair, (1, 2), 1 << 16, "global")
+    assert join(big_left, (right[0][:0], right[1][:0]), one_pair, (1,), 64, "global") == (0, 1)
+    join(left, right, one_pair, (1,), 20000, "global")     # cap past the block regime's
     torch.cuda.synchronize()

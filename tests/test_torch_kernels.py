@@ -187,3 +187,232 @@ def test_anti_join_set_mirror_matches_tpu_kernel(n_r, p_valid, pairs):
     if p_valid == 0.0:
         # only the right sentinel is in the set, which no left key equals
         assert np.array_equal(got, lm)
+
+
+# -- the multi-term probe and the 32-way search of csrc/probe.cu ---------------
+
+
+def _probe_terms(rng):
+    """18 terms (more than one launch's 16): int32 and int64 key columns,
+    extra_fixed and eq_pairs, windows that fit and totals past capacity."""
+    cols = {np.int32: _probe_inputs(rng, 2000, 3, np.int32, 3),
+            np.int64: _probe_inputs(rng, 2000, 3, np.int64, 3)}
+    terms = []
+    for n in range(18):
+        key_dtype, key, fvals, var_cols, eq_pairs, extra_fixed = PROBE_CASES[n % 3]
+        keys, perm, targets = cols[key_dtype]
+        terms.append(kernels.ProbeTerm(_t(keys), _t(perm), _t(targets), (key + n) % 3, fvals,
+                                       3000 if n % 2 else 64, var_cols, eq_pairs,
+                                       extra_fixed))
+    return terms
+
+
+def test_probe_term_tables_plain_matches_tpu_kernel(layout):
+    terms = _probe_terms(np.random.default_rng(21))
+    got = kernels.probe_term_tables(terms)
+    assert len(got) == len(terms) > 16
+    past_cap = 0
+    for t, g in zip(terms, got):
+        want = probe_term_table_impl(
+            t.sorted_keys.numpy(), t.perm.numpy(), t.targets.numpy(),
+            t.sorted_keys.numpy().dtype.type(t.probe_key), np.asarray(t.fixed_vals, np.int32),
+            t.capacity, var_cols=t.var_cols, eq_pairs=t.eq_pairs, extra_fixed=t.extra_fixed,
+            interpret=True)
+        for w, x in zip(want, g):
+            _same(w, x)
+        past_cap += int(g[2]) > t.capacity
+    assert past_cap > 0
+
+
+def _warp_search(keys, q, upper):
+    """csrc/probe.cu pr_search in Python: the answer lies in [lo, hi]; lane
+    l reads keys[lo + (l + 1) * stride - 1], and the ballot of lanes still
+    below q (upper: at or below) is a prefix of c lanes, which leaves
+    [lo + c * stride, min(lo + (c + 1) * stride - 1, hi)].  Returns the
+    bound and the number of dependent steps."""
+    lo, hi, steps = 0, len(keys), 0
+    while hi > lo:
+        stride = (hi - lo + 31) >> 5
+        below = []
+        for lane in range(32):
+            p = lo + (lane + 1) * stride - 1
+            below.append(p < hi and (keys[p] <= q if upper else keys[p] < q))
+        c = sum(below)
+        assert below == [True] * c + [False] * (32 - c)   # the ballot is a prefix
+        lo, hi = lo + c * stride, min(lo + (c + 1) * stride - 1, hi)
+        steps += 1
+    return lo, steps
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 1023, 1025, 4095, 4097, (1 << 16) + 1])
+def test_warp_search_mirror_matches_searchsorted(dtype, n):
+    rng = np.random.default_rng(n)
+    top = np.iinfo(dtype).max
+    keys = np.sort(rng.integers(-40, 40, n)).astype(dtype)
+    keys[n - n // 8:] = top          # capacity padding, as the store pads
+    probes = [-41, -40, -1, 0, 7, 39, 40, top - 1, top] + keys[:: max(1, n // 16)].tolist()
+    column = keys.tolist()
+    for q in probes:
+        for upper in (False, True):
+            got, steps = _warp_search(column, int(q), upper)
+            assert got == np.searchsorted(keys, dtype(q), side="right" if upper else "left")
+            assert steps <= max(1, -(-int(np.log2(max(n, 2))) // 5) + 1)
+
+
+# -- the sort-merge join without a sort (csrc/join_tables.cu), mirrored ---------
+
+#: csrc/join_tables.cu JT_EMPTY: the set's empty-slot marker
+JT_EMPTY = SENTINEL_L
+_U64 = (1 << 64) - 1
+
+
+def _key_ids(keys):
+    """group.cuh's set of int64 keys in Python: 2^bits >= 2n slots (bits >=
+    5), slot (key * 0x9E3779B97F4A7C15 mod 2^64) >> (64 - bits), linear
+    probing, empty marker JT_EMPTY; dense ids in slot order, and a key equal
+    to the marker takes the last id (the word after the slots).  Returns
+    {key: id}."""
+    bits = 5
+    while (1 << bits) < 2 * len(keys):
+        bits += 1
+    slots = [JT_EMPTY] * (1 << bits)
+    marked = False
+    for k in keys:
+        if k == JT_EMPTY:
+            marked = True
+            continue
+        h = (((k & _U64) * 0x9E3779B97F4A7C15) & _U64) >> (64 - bits)
+        while slots[h] not in (JT_EMPTY, k):
+            h = (h + 1) % len(slots)
+        slots[h] = k
+    ids = {}
+    for s in slots:
+        if s != JT_EMPTY:
+            ids[s] = len(ids)
+    if marked:
+        ids[JT_EMPTY] = len(ids)
+    return ids
+
+
+def _group_windows(key_l, key_r, regime):
+    """Each left key's window (first grouped slot, count) and the right rows
+    grouped stably by key, with no sort.  `block`: a set of the right keys,
+    every right row placed by its id; `global` (group.cuh's engine): a set
+    of the left keys, the right rows filtered by it."""
+    if regime == "block":
+        ids = _key_ids(key_r)
+        rid = [ids[k] for k in key_r]
+        lid = [ids.get(k, -1) for k in key_l]
+    else:
+        ids = _key_ids(key_l)
+        lid = [ids[k] for k in key_l]
+        rid = [ids.get(k, -1) for k in key_r]
+    cnt = [0] * len(ids)
+    for d in rid:
+        if d >= 0:
+            cnt[d] += 1
+    start = np.concatenate([[0], np.cumsum(cnt)]).astype(int).tolist()
+    base, grouped = list(start), [0] * start[-1]
+    for j, d in enumerate(rid):          # in row order: the stable placement
+        if d >= 0:
+            grouped[base[d]] = j
+            base[d] += 1
+    lo = [start[d] if d >= 0 else 0 for d in lid]
+    return lo, [cnt[d] if d >= 0 else 0 for d in lid], grouped
+
+
+def _join_group_mirror(lv, lm, rv, rm, pairs, extra, cap, regime):
+    """csrc/join_tables.cu in Python: mixed keys with the sentinels, the
+    windows of _group_windows, the offsets (the scan of the counts, invalid
+    left rows NOT masked), the slot expansion, the exact check of both
+    masks and every pair, the emit [left | right_extra]."""
+    n_l, n_r = lv.shape[0], rv.shape[0]
+    out = np.zeros((cap, lv.shape[1] + len(extra)), np.int32)
+    ov = np.zeros(cap, bool)
+    total = 0
+    if n_l and n_r:
+        key_l = mix_columns(_t(lv), tuple(a for a, _ in pairs), _t(lm), SENTINEL_L).tolist()
+        key_r = mix_columns(_t(rv), tuple(b for _, b in pairs), _t(rm), SENTINEL_R).tolist()
+        lo, cnt, grouped = _group_windows(key_l, key_r, regime)
+        offsets = np.cumsum(cnt)
+        total = int(offsets[-1])
+        for j in range(min(cap, total)):
+            li = min(int(np.searchsorted(offsets, j, side="right")), n_l - 1)
+            ri = grouped[lo[li] + j - (int(offsets[li]) - cnt[li])]
+            if lm[li] and rm[ri] and all(lv[li, a] == rv[ri, b] for a, b in pairs):
+                out[j] = np.concatenate([lv[li], rv[ri, list(extra)]])
+                ov[j] = True
+    return _t(out), _t(ov), torch.tensor(total, dtype=torch.int64)
+
+
+def _join_cases():
+    rng = np.random.default_rng(61)
+    lv, lm = _table(rng, 300, 2, 30)
+    rv, rm = _table(rng, 300, 2, 30)    # 300 rows over a span of 30: ties
+    big_l, big_lm = _table(rng, 200, 2, 3000)
+    big_r, big_rm = _table(rng, 20000, 2, 3000)
+    one, two = ((0, 0),), ((0, 1), (1, 0))
+    return {
+        "one_pair": (lv, lm, rv, rm, one, (1,), 3000),
+        "two_pairs": (lv, lm, rv, rm, two, (), 3000),
+        "ties_total_past_cap": (lv, lm, rv, rm, one, (1,), 512),
+        "all_invalid_left": (lv, lm & False, rv, rm, one, (1,), 3000),
+        "all_invalid_right": (lv, lm, rv, rm & False, two, (), 3000),
+        "one_left_row": (lv[:1], np.ones(1, bool), rv, rm, one, (1,), 64),
+        "right_past_block_limit": (big_l, big_lm, big_r, big_rm, one, (1,), 4096),
+    }
+
+
+JOIN_CASES = _join_cases()
+
+
+@pytest.mark.parametrize("regime", ["block", "global"])
+@pytest.mark.parametrize("name", sorted(JOIN_CASES))
+def test_join_group_mirror_matches_tpu_kernel(name, regime):
+    lv, lm, rv, rm, pairs, extra, cap = JOIN_CASES[name]
+    want = join_tables_impl(lv, lm, rv, rm, pairs, extra, cap, interpret=True)
+    got = _join_group_mirror(lv, lm, rv, rm, pairs, extra, cap, regime)
+    for w, g in zip(want, got):
+        _same(w, g)
+    if name == "ties_total_past_cap":
+        assert int(got[2]) > cap
+    if name == "right_past_block_limit":
+        assert 0 < int(got[2]) <= cap
+
+
+@pytest.mark.parametrize("regime", ["block", "global"])
+def test_join_group_mirror_empty_right(regime):
+    """A zero-row side joins to nothing: total 0, zeroed slots.  das_tpu's
+    join kernel cannot gather from a zero-row side, so the port's plain
+    version (tests/test_torch_ops.py test_join_tables_empty_side) is the
+    reference here."""
+    lv, lm, rv, rm, pairs, extra, cap = JOIN_CASES["one_pair"]
+    args = (lv, lm, rv[:0], rm[:0], pairs, extra, 64)
+    got = _join_group_mirror(*args, regime)
+    want = kernels.join_tables_plain(*map(_t, args[:4]), pairs, extra, 64)
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
+    assert int(got[2]) == 0 and not bool(got[1].any())
+
+
+@pytest.mark.parametrize("regime", ["block", "global"])
+def test_join_group_windows_sentinel_keys(regime):
+    """Raw int64 keys with valid keys planted at 2^63-1 (the left sentinel
+    and the set's empty marker), 2^63-2 (the right sentinel) and -2^63:
+    every left key's window equals the reference prologue's (a stable
+    argsort of the right keys and searchsorted, join.py _join_prologue)."""
+    rng = np.random.default_rng(67)
+    key_r = rng.integers(-6, 6, 400)
+    key_l = rng.integers(-7, 7, 300)
+    for keys in (key_r, key_l):
+        keys[::7] = SENTINEL_L
+        keys[1::11] = SENTINEL_R
+        keys[2::13] = np.iinfo(np.int64).min
+    lo, cnt, grouped = _group_windows(key_l.tolist(), key_r.tolist(), regime)
+    order = np.argsort(key_r, kind="stable")
+    want_lo = np.searchsorted(key_r[order], key_l, side="left")
+    want_hi = np.searchsorted(key_r[order], key_l, side="right")
+    for i in range(key_l.shape[0]):
+        assert grouped[lo[i]:lo[i] + cnt[i]] == order[want_lo[i]:want_hi[i]].tolist()
+    assert min(cnt[i] for i in range(0, 300, 7)) > 0      # 2^63-1 met 2^63-1

@@ -230,3 +230,34 @@ def test_load_knowledge_base_then_query(tmp_path, animals_pair):
     pt2 = DistributedAtomSpace(backend="tensor", device="cpu")
     pt2.load_metta_text(open(path).read())
     assert _answer(pt2, _build(ast, ANIMALS[1])) == _answer(pt, _build(ast, ANIMALS[1]))
+
+
+def test_run_conj_probes_each_plan_in_one_call(bio_pair, monkeypatch):
+    """run_conj probes every materialized term of a plan in ONE
+    probe_term_tables call (one launch on the card), never term by term,
+    and answers as before."""
+    from das_tpu_torch import kernels
+    from das_tpu_torch.query import fused
+
+    _jx, pt, picks = bio_pair
+    calls = {"conj": 0, "tables": [], "table": 0}
+
+    def spy(fn, record):
+        def wrapped(*a, **kw):
+            record(a)
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(fused, "run_conj", spy(
+        fused.run_conj, lambda a: calls.__setitem__("conj", calls["conj"] + 1)))
+    monkeypatch.setattr(kernels, "probe_term_tables", spy(
+        kernels.probe_term_tables, lambda a: calls["tables"].append(len(a[0]))))
+    monkeypatch.setattr(kernels, "probe_term_table", spy(
+        kernels.probe_term_table, lambda a: calls.__setitem__("table", calls["table"] + 1)))
+    for spec in _bio_specs(picks[:2]):
+        plans = compiler.plan_query(pt.db, _build(ast, spec))
+        ex = get_executor(pt.db)
+        res = ex.execute(plans, count_only=True)
+        assert res.count == compiler.count_matches(pt.db, _build(ast, spec))
+    assert calls["conj"] >= 5 and len(calls["tables"]) == calls["conj"]
+    assert calls["table"] == 0 and max(calls["tables"]) >= 2
