@@ -19,15 +19,19 @@ Phases, one JSON line each:
                query's, and the grounded and Not queries' together),
                fan-out-sized tails holding v and ~v (equal mixed keys),
                the int64 wraparound of four 2^16-row tails, a two-pair
-               sort-merge join key, and a case for every regime of the
-               sort-merge join (block, global), the anti join (shared,
-               global) and the multiway join (block, filter, global), a
-               star of 30 tails (descriptors in device memory), each held
-               to the regime named for it; times from CUDA events, the
-               kernels launched per call (every probe call and every
-               main-path call of a kernel with regimes: 1), and for each
-               such main-path call the host time of a call queued behind
-               a sleep kernel (the wrapper must not wait);
+               sort-merge join key, index joins with an all-invalid or
+               empty left side, a negative join value, a second pair that
+               fails on some slots and no right_extra, and a case for
+               every regime of the index join (block, global: 65,536
+               Member process ids), the sort-merge join (block, global),
+               the anti join (shared, global) and the multiway join
+               (block, filter, global), a star of 30 tails (descriptors in
+               device memory), each held to the regime named for it (the
+               phase fails if a regime ran no case); times from CUDA
+               events, the kernels launched per call (every probe call
+               and every main-path call of a kernel with regimes: 1),
+               and for each such main-path call the host time of a call
+               queued behind a sleep kernel (the wrapper must not wait);
   3. slice   — the main path through the public API: a FlyBase-shaped
                knowledge base (SimplePatternMiner.ipynb cell 0, cut by
                --scale) in DistributedAtomSpace(backend="tensor") on the
@@ -598,6 +602,21 @@ def phase_kernels(das, gene_name, star, fanout, iters):
     pairs_l = pairs_r[torch.randperm(pairs_r.shape[0], generator=gen)[:1500].to(dev)].clone()
     pairs_l[::3, 1] += 1
     pairs_lm = torch.ones(pairs_l.shape[0], dtype=torch.bool, device=dev)
+    # index joins into the main path's posting index: real Member rows
+    # (gene, process) keyed on the process, so a second pair on the gene
+    # passes on one slot of each window; 65,536 process ids for `global`
+    fin_b = das.db.fin.buckets[2]
+    mem_rows = torch.from_numpy(fin_b.targets[fin_b.type_id == tid_member][: 1 << 16]).to(dev)
+    ipairs, icols = iargs[6], iargs[7]
+    rc_key = ipairs[0][1]
+    rc_other = next(rc for rc in range(len(icols)) if rc != rc_key)
+    ilv, ilm = iargs[0].clone(), iargs[1].clone()
+    ilv[0, ipairs[0][0]] = -ilv[0, ipairs[0][0]] - 1      # sign-extended: finds nothing
+    ilm[0] = True
+    mem_ones = torch.ones(mem_rows.shape[0], dtype=torch.bool, device=dev)
+    member_left = mem_rows[torch.randperm(mem_rows.shape[0], generator=gen)[:16].to(dev)]
+    member_left = member_left.contiguous()
+    index = iargs[2:6]
     # (wrapper, case, args, kwargs, the regime the wrapper must take); the
     # kernel is the wrapper's name, "probe" for both probe wrappers
     cases = [
@@ -612,9 +631,20 @@ def phase_kernels(das, gene_name, star, fanout, iters):
         ("probe", "total > cap (int32 key_type)",
          (member.key_type, member.order_by_type, member.targets, tid_member, [], 4096), cols,
          "warp_search"),
-        ("index_join", "main path", iargs, {}, None),
+        ("index_join", "main path", iargs, {}, "block"),
         ("index_join", "total > cap",
-         (*iargs[:-1], max(16, int(iargs[-1]) // 8)), {}, None),
+         (*iargs[:-1], max(16, int(iargs[-1]) // 8)), {}, "block"),
+        ("index_join", "all-invalid left",
+         (iargs[0], torch.zeros_like(iargs[1]), *iargs[2:]), {}, "block"),
+        ("index_join", "empty left", (iargs[0][:0], iargs[1][:0], *iargs[2:]), {}, "block"),
+        ("index_join", "second pair failing on some slots (16 Member rows)",
+         (member_left, mem_ones[:16], *index, ((1, rc_key), (0, rc_other)), icols,
+          (rc_other,), 4096), {}, "block"),
+        ("index_join", "no right_extra", (*iargs[:8], (), iargs[9]), {}, "block"),
+        ("index_join", "negative join value", (ilv, ilm, *iargs[2:]), {}, "block"),
+        ("index_join", "global: 65,536 Member process ids, total > cap",
+         (mem_rows[:, 1:2].contiguous(), mem_ones, *index, ((0, rc_key),), icols,
+          (rc_other,), 1 << 16), {}, "global"),
         ("join_tables", "main path", jargs, {}, "block"),
         ("join_tables", "tied keys, total > cap (right: 65,536 procs rows)",
          (left, lmask, procs, ones, ((1, 0),), (0,), 4096), {}, "global"),
@@ -657,6 +687,7 @@ def phase_kernels(das, gene_name, star, fanout, iters):
           ((0, ()), (0, ())), 4096), {}, "global"),
     ]
     rows = []
+    launch.reset_launch_counts()
     for wrapper, case, args, kw, regime in cases:
         kernel, plain = wrappers[wrapper]
         name = "probe" if wrapper.startswith("probe") else wrapper
@@ -713,11 +744,19 @@ def phase_kernels(das, gene_name, star, fanout, iters):
         if name == "join_tables":
             row["left_rows"], row["right_rows"] = args[0].shape[0], args[2].shape[0]
             row["cap"] = args[-1]
+        if name == "index_join":
+            row["left_rows"], row["cap"] = args[0].shape[0], args[-1]
+            row["valid"] = int(got[1].sum())
+            if "failing" in case and not 0 < row["valid"] < total:
+                raise AssertionError(f"index_join [{case}]: no slot failed the second pair")
         if name == "multiway":
             row["left_rows"] = args[0].shape[0]
             row["tail_rows"] = [v.shape[0] for v, _m in args[2]]
             row["cap"] = args[-1]
         rows.append(row)
+    idle = [f"{k}/{r}" for (k, r), n in launch.REGIME_COUNTS.items() if n == 0]
+    if idle:
+        raise AssertionError(f"regimes that ran no case: {idle}")
     emit({"phase": "kernels", "cases": rows})
     return {r["name"]: r for r in rows if r["case"].startswith("main path")}
 

@@ -21,7 +21,7 @@ There is no routing switch: a CUDA tensor goes to the kernel (built at
 first use, see launch.py) or the call raises; a CPU tensor goes to the
 plain PyTorch version beside each wrapper.  Every C entry reports the CUDA
 design (regime) it ran by name, picked from the shapes alone where there
-are several (the sort-merge, anti and multiway joins), counted in
+are several (the index, sort-merge, anti and multiway joins), counted in
 `launch.REGIME_COUNTS`."""
 
 from das_tpu_torch.kernels.join import (  # noqa: F401

@@ -1,10 +1,12 @@
 // Shared device helpers of the das_tpu_torch Hopper kernels.
 //
 // Replaces the in-kernel primitives of das_tpu/kernels/common.py
-// (unrolled_search, select_columns) and the key mix of das_tpu/ops/join.py
-// (_mix_columns), and declares the device-wide primitive the joins build
-// on (primitives.cu): an int64 inclusive scan.  Nothing sorts: the joins
-// group rows stably by key (group.cuh) instead.
+// (unrolled_search: a binary upper bound and the 32-way warp search the
+// probe and the index join share; select_columns), the key mix of
+// das_tpu/ops/join.py (_mix_columns) and the one-block scan of the joins'
+// counts (_scan_offsets), and declares the device-wide primitive the
+// joins build on (primitives.cu): an int64 inclusive scan.  Nothing sorts:
+// the joins group rows stably by key (group.cuh) instead.
 //
 // Every entry point has a plain C interface (loaded with ctypes), launches
 // on the stream it is given, allocates nothing (the Python wrapper passes
@@ -58,18 +60,6 @@ __device__ __forceinline__ int64_t das_clamp(int64_t x, int64_t lo, int64_t hi) 
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
-// first index i in [0, n) with keys[i] >= q (n when none): the
-// searchsorted(side='left') of unrolled_search; 0 for an empty column
-template <typename T>
-__device__ __forceinline__ int64_t das_lower_bound(const T* keys, int64_t n, T q) {
-  int64_t lo = 0, hi = n;
-  while (lo < hi) {
-    int64_t mid = (lo + hi) >> 1;
-    if (keys[mid] < q) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
 // first index i in [0, n) with keys[i] > q: searchsorted(side='right')
 template <typename T>
 __device__ __forceinline__ int64_t das_upper_bound(const T* keys, int64_t n, T q) {
@@ -101,15 +91,76 @@ __device__ __forceinline__ int64_t das_mix_row(const int32_t* row, const DasCols
   return (int64_t)acc;
 }
 
-// slot -> (left row, first slot of that row) of a pair expansion:
-// li = upper_bound(offsets, j) over the inclusive offsets of the per-row
-// pair counts, clamped to [0, n_left - 1] like _expand_window's li_safe;
-// prev = offsets[li] - cnt[li].  Only called for j < offsets[n_left - 1].
-__device__ __forceinline__ int64_t das_slot_row(const int64_t* offsets, const int64_t* cnt,
-                                                int64_t n_left, int64_t j, int64_t* prev) {
-  const int64_t li = das_clamp(das_upper_bound<int64_t>(offsets, n_left, j), 0, n_left - 1);
-  *prev = offsets[li] - cnt[li];
-  return li;
+// 32-way cooperative search by one warp: the first index i in [lo, hi)
+// with keys[i] >= q (upper: keys[i] > q), hi when none; over [0, n) it is
+// searchsorted(side='left' / 'right') over the whole column, padding
+// included.  Invariant: the answer lies in [lo, hi]; lane l reads the key
+// at lo + (l + 1) * stride - 1 and the ballot of "still below" is a prefix
+// of the lanes, whose length c leaves [lo + c * stride,
+// min(lo + (c + 1) * stride - 1, hi)]: ~5 dependent loads for 2^22 keys,
+// where a binary search makes ~23.  Every lane of the warp calls it with
+// the same arguments and gets the answer.
+template <typename K>
+__device__ __forceinline__ int64_t das_warp_search(const K* keys, int64_t lo, int64_t hi, K q,
+                                                   bool upper) {
+  const int lane = threadIdx.x & 31;
+  while (hi > lo) {
+    const int64_t stride = (hi - lo + 31) >> 5;
+    const int64_t p = lo + (lane + 1) * stride - 1;
+    bool below = false;
+    if (p < hi) {
+      const K v = keys[p];
+      below = upper ? v <= q : v < q;
+    }
+    const int c = __popc(__ballot_sync(0xffffffffu, below));
+    const int64_t nhi = lo + (c + 1) * stride - 1;
+    lo += c * stride;
+    hi = nhi < hi ? nhi : hi;
+  }
+  return lo;
+}
+
+// exclusive block-wide prefix sum of one value per thread; *total = the sum
+template <typename T>
+__device__ T das_block_exclusive(T v, T* warp_tot, T* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  T s = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const T t = __shfl_up_sync(0xffffffffu, s, o);
+    if (lane >= o) s += t;
+  }
+  if (lane == 31) warp_tot[warp] = s;
+  __syncthreads();
+  if (warp == 0) {
+    T w = lane < nw ? warp_tot[lane] : (T)0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const T t = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += t;
+    }
+    if (lane < nw) warp_tot[lane] = w;
+  }
+  __syncthreads();
+  const T excl = s - v + (warp > 0 ? warp_tot[warp - 1] : (T)0);
+  *total = warp_tot[nw - 1];
+  __syncthreads();
+  return excl;
+}
+
+// in-place inclusive scan of a[0, n) by one block, in uint64 (wraps as
+// XLA's int64 sums do); each thread takes one contiguous chunk
+__device__ inline void das_block_scan(uint64_t* a, int64_t n, uint64_t* warp_tot) {
+  const int64_t per = (n + blockDim.x - 1) / blockDim.x;
+  const int64_t b = threadIdx.x * per, e = b + per < n ? b + per : n;
+  uint64_t s = 0, total;
+  for (int64_t i = b; i < e; ++i) s += a[i];
+  uint64_t run = das_block_exclusive<uint64_t>(s, warp_tot, &total);
+  for (int64_t i = b; i < e; ++i) {
+    run += a[i];
+    a[i] = run;
+  }
+  __syncthreads();
 }
 
 // ---- device-wide primitives (primitives.cu) --------------------------------

@@ -106,49 +106,6 @@ __device__ __forceinline__ int32_t grp_find(const typename Keys::K* skey, const 
   }
 }
 
-// exclusive block-wide prefix sum of one value per thread; *total = the sum
-template <typename T>
-__device__ T grp_block_exclusive(T v, T* warp_tot, T* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  T s = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const T t = __shfl_up_sync(0xffffffffu, s, o);
-    if (lane >= o) s += t;
-  }
-  if (lane == 31) warp_tot[warp] = s;
-  __syncthreads();
-  if (warp == 0) {
-    T w = lane < nw ? warp_tot[lane] : (T)0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const T t = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += t;
-    }
-    if (lane < nw) warp_tot[lane] = w;
-  }
-  __syncthreads();
-  const T excl = s - v + (warp > 0 ? warp_tot[warp - 1] : (T)0);
-  *total = warp_tot[nw - 1];
-  __syncthreads();
-  return excl;
-}
-
-// in-place inclusive scan of a[0, n) by one block, in uint64 (wraps as
-// XLA's int64 sums do); each thread takes one contiguous chunk
-__device__ void grp_block_scan(uint64_t* a, int64_t n, uint64_t* warp_tot) {
-  const int64_t per = (n + blockDim.x - 1) / blockDim.x;
-  const int64_t b = threadIdx.x * per, e = b + per < n ? b + per : n;
-  uint64_t s = 0, total;
-  for (int64_t i = b; i < e; ++i) s += a[i];
-  uint64_t run = grp_block_exclusive<uint64_t>(s, warp_tot, &total);
-  for (int64_t i = b; i < e; ++i) {
-    run += a[i];
-    a[i] = run;
-  }
-  __syncthreads();
-}
-
 // One block: the set of the keys of rows [0, n) (keys.left_key), 2^bits
 // slots, dense ids in slot order (the marked key last), lid[i] = the id of
 // row i or -1 when it has no key.  Returns the number of ids.
@@ -182,7 +139,7 @@ __device__ int64_t grp_build_set(const Keys& keys, int64_t n, typename Keys::K* 
   const int64_t b = threadIdx.x * per, e = b + per < slots ? b + per : slots;
   uint64_t mine = 0, total;
   for (int64_t h = b; h < e; ++h) mine += skey[h] != Keys::kEmpty;
-  int32_t id = (int32_t)grp_block_exclusive<uint64_t>(mine, warp_tot, &total);
+  int32_t id = (int32_t)das_block_exclusive<uint64_t>(mine, warp_tot, &total);
   for (int64_t h = b; h < e; ++h) sid[h] = skey[h] != Keys::kEmpty ? id++ : -1;
   int64_t n_ids = (int64_t)total;
   if constexpr (Keys::kMarked) {

@@ -179,7 +179,7 @@ jt_block_kernel(const __grid_constant__ JtArgs a, int bits, int64_t cap, int32_t
   __syncthreads();
   for (int64_t d = threadIdx.x; d < n_ids; d += blockDim.x) incl[d] = cnt[d];
   __syncthreads();
-  grp_block_scan(incl, n_ids, warp_tot);
+  das_block_scan(incl, n_ids, warp_tot);
   for (int64_t d = threadIdx.x; d < n_ids; d += blockDim.x) base[d] = (int32_t)(incl[d] - cnt[d]);
   __syncthreads();
   int parity = 0;
@@ -193,7 +193,7 @@ jt_block_kernel(const __grid_constant__ JtArgs a, int bits, int64_t cap, int32_t
     off[i] = d >= 0 ? cnt[d] : 0;
   }
   __syncthreads();
-  grp_block_scan(off, n_left, warp_tot);
+  das_block_scan(off, n_left, warp_tot);
   const int64_t total = n_left > 0 ? (int64_t)off[n_left - 1] : 0;
   if (threadIdx.x == 0) tot[0] = total;
   const int64_t* offsets = reinterpret_cast<const int64_t*>(off);

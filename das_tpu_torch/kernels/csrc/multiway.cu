@@ -224,7 +224,7 @@ mw_block_kernel(const __grid_constant__ MwStarKeys keys, int64_t n_left,
   __syncthreads();
   for (int64_t b = threadIdx.x; b < n_bins; b += blockDim.x) hist[b] = incl[b] = cnt32[b];
   __syncthreads();
-  grp_block_scan(incl, n_bins, warp_tot);
+  das_block_scan(incl, n_bins, warp_tot);
   for (int64_t b = threadIdx.x; b < n_bins; b += blockDim.x)
     cnt32[b] = (uint32_t)(incl[b] - hist[b]);
   __syncthreads();
@@ -241,7 +241,7 @@ mw_block_kernel(const __grid_constant__ MwStarKeys keys, int64_t n_left,
     run[i] = offsets[i] = r;
   }
   __syncthreads();
-  grp_block_scan(offsets, n_left, warp_tot);
+  das_block_scan(offsets, n_left, warp_tot);
   if ((int)threadIdx.x < n_tails) tot[threadIdx.x] = (int64_t)totals[threadIdx.x];
   const int64_t total = (int64_t)totals[n_tails - 1];
   const GrpState s{reinterpret_cast<const int64_t*>(offsets),

@@ -19,9 +19,10 @@
 // block finds its term by the block offsets the C entry computes from the
 // static capacities.  Each block searches for its term's window itself:
 // warp 0 the lower bound, warp 1 the upper bound, each a 32-way
-// cooperative search (32 lanes read 32 evenly spaced keys and a ballot
-// narrows the range 32x a step: ~5 dependent loads for 2^22 keys, where a
-// binary search makes ~23), broadcast through shared memory.  The blocks
+// cooperative search (common.cuh das_warp_search: 32 lanes read 32 evenly
+// spaced keys and a ballot narrows the range 32x a step: ~5 dependent
+// loads for 2^22 keys, where a binary search makes ~23), broadcast through
+// shared memory.  The blocks
 // of one term repeat the search from L2; block 0 of a term writes the
 // exact count.  Then each thread emits PR_SLOTS slots a pass, strided by
 // the block width so that a warp's every load and store covers 32
@@ -69,31 +70,6 @@ struct PrTerms {
   PrTerm t[PR_PARAM_TERMS];
   int n;
 };
-
-// 32-way cooperative search by one warp: the first index i in [0, n) with
-// keys[i] >= q (upper: keys[i] > q), n when none.  Invariant: the answer
-// lies in [lo, hi]; lane l reads the key at lo + (l + 1) * stride - 1 and
-// the ballot of "still below" is a prefix of the lanes, whose length c
-// leaves [lo + c * stride, min(lo + (c + 1) * stride - 1, hi)].
-template <typename K>
-__device__ __forceinline__ int64_t pr_search(const K* keys, int64_t n, K q, bool upper) {
-  const int lane = threadIdx.x & 31;
-  int64_t lo = 0, hi = n;
-  while (hi > lo) {
-    const int64_t stride = (hi - lo + 31) >> 5;
-    const int64_t p = lo + (lane + 1) * stride - 1;
-    bool below = false;
-    if (p < hi) {
-      const K v = keys[p];
-      below = upper ? v <= q : v < q;
-    }
-    const int c = __popc(__ballot_sync(0xffffffffu, below));
-    const int64_t nhi = lo + (c + 1) * stride - 1;
-    lo += c * stride;
-    hi = nhi < hi ? nhi : hi;
-  }
-  return lo;
-}
 
 // The source row of slot j, or null when the slot is masked.
 __device__ __forceinline__ const int32_t* pr_row(const PrTerm& t, int64_t lo, int32_t count,
@@ -157,8 +133,10 @@ pr_terms_kernel(const __grid_constant__ PrTerms ts) {
   if (warp < 2) {
     const int64_t b =
         t.key_is_i64
-            ? pr_search<int64_t>((const int64_t*)t.keys, t.n_keys, (int64_t)t.key, warp == 1)
-            : pr_search<int32_t>((const int32_t*)t.keys, t.n_keys, (int32_t)t.key, warp == 1);
+            ? das_warp_search<int64_t>((const int64_t*)t.keys, 0, t.n_keys, (int64_t)t.key,
+                                       warp == 1)
+            : das_warp_search<int32_t>((const int32_t*)t.keys, 0, t.n_keys, (int32_t)t.key,
+                                       warp == 1);
     if ((threadIdx.x & 31) == 0) bounds[warp] = b;
   }
   __syncthreads();

@@ -2,9 +2,10 @@
 
 Replace `das_tpu/kernels/join.py` (`join_tables_impl`, `index_join_impl`,
 `anti_join_impl`).  The CUDA kernels live in `csrc/join_tables.cu` (stable
-grouping by key, no sort: csrc/group.cuh), `csrc/index_join.cu` (on the
-scan of `csrc/primitives.cu`) and `csrc/anti_join.cu` (a hash set, no
-sort).  Their plain PyTorch versions are `das_tpu_torch/ops/join.py`'s
+grouping by key, no sort: csrc/group.cuh), `csrc/index_join.cu` (32-way
+warp searches of the posting index and a block scan in one launch, or a
+grid on the scan of `csrc/primitives.cu`) and `csrc/anti_join.cu` (a hash
+set, no sort).  Their plain PyTorch versions are `das_tpu_torch/ops/join.py`'s
 functions of the same names: taken for CPU tensors and held against the
 kernels on the card."""
 
@@ -67,7 +68,10 @@ def index_join(left_vals, left_valid, keys_sorted, perm, targets, type_key: int,
     """Join a binding table into a whole link type through its
     (type<<32|target) posting index (never materialized).  Returns
     (out_vals[capacity, kL+len(right_extra)] int32, out_valid bool,
-    total int64 0-d)."""
+    total int64 0-d); total is exact, even past capacity.  The C entry
+    picks its regime from n_left and capacity (csrc/index_join.cu:
+    `block`, one launch of one block, or `global`, a bounds grid, the
+    device-wide scan and an expand grid)."""
     if not launch.is_cuda(left_vals):
         return index_join_plain(left_vals, left_valid, keys_sorted, perm, targets,
                                 type_key, pairs, right_var_cols, right_extra, capacity)
@@ -78,34 +82,24 @@ def index_join(left_vals, left_valid, keys_sorted, perm, targets, type_key: int,
     launch.check(targets, "targets", torch.int32, 2, dev)
     if perm.shape[0] != keys_sorted.shape[0]:
         raise ValueError("perm and keys_sorted differ in length")
-    n_left, kl = left_vals.shape
-    n_rows, arity = targets.shape
-    k_out = kl + len(right_extra)
-    checks = list(pairs[1:])
-    out = launch.empty((capacity, k_out), torch.int32, dev)
-    ov = launch.empty(capacity, torch.bool, dev)
-    tot = launch.empty(1, torch.int64, dev)
-    lo = launch.empty(max(n_left, 1), torch.int64, dev)
-    cnt = launch.empty(max(n_left, 1), torch.int64, dev)
-    offsets = launch.empty(max(n_left, 1), torch.int64, dev)
-    scan_len = max(launch.scan_scratch(n_left), 1)
-    scan = launch.empty(scan_len, torch.int64, dev)
+    (n_left, kl), (n_rows, arity) = left_vals.shape, targets.shape
+    pairs, right_extra = _as_tuples(pairs), tuple(right_extra)
+    out, ov, tot = launch.carve(dev, (((capacity, kl + len(right_extra)), torch.int32),
+                                      ((capacity,), torch.bool), ((), torch.int64)))
     lib = launch.library()
-    with torch.cuda.device(dev):
+    scratch = launch.scratch(lib.das_index_join_scratch(n_left, capacity), dev)
+    n_launched, regime = launch.launches_out(), launch.regime_out()
+    with launch.on_device(dev):
         err = lib.das_index_join(
             left_vals.data_ptr(), left_valid.data_ptr(), n_left, kl, pairs[0][0],
-            int(type_key), keys_sorted.data_ptr(), keys_sorted.shape[0],
-            perm.data_ptr(), targets.data_ptr(), n_rows, arity,
-            launch.int_array([lc for lc, _ in checks]),
-            launch.int_array([right_var_cols[rc] for _, rc in checks]), len(checks),
-            launch.int_array([right_var_cols[rc] for rc in right_extra]), len(right_extra),
-            capacity, lo.data_ptr(), cnt.data_ptr(), offsets.data_ptr(),
-            scan.data_ptr(), scan_len, out.data_ptr(), ov.data_ptr(), tot.data_ptr(),
-            launch.stream_of(dev),
-        )
+            int(type_key), keys_sorted.data_ptr(), keys_sorted.shape[0], perm.data_ptr(),
+            targets.data_ptr(), n_rows, arity,
+            *_index_arrays(pairs, tuple(right_var_cols), right_extra), capacity,
+            launch.ptr(scratch), out.data_ptr(), ov.data_ptr(), tot.data_ptr(), n_launched,
+            regime, launch.stream_of(dev))
     launch.raise_on(err, "index_join")
-    launch.LAUNCH_COUNTS["index_join"] += 1
-    return out, ov, tot[0]
+    launch.count_call("index_join", regime, n_launched)
+    return out, ov, tot
 
 
 @functools.lru_cache(maxsize=1024)
@@ -120,6 +114,18 @@ def _pair_arrays(pairs):
 def _col_array(cols):
     """(columns, count) as a C array, built once per columns tuple."""
     return launch.int_array(cols), len(cols)
+
+
+@functools.lru_cache(maxsize=1024)
+def _index_arrays(pairs, right_var_cols, right_extra):
+    """(check left columns, check target positions, count, extra target
+    positions, count) of an index join as C arrays, built once per shape:
+    the pairs after the first, which the kernel checks, and right_extra,
+    each right column mapped to its target position."""
+    checks = pairs[1:]
+    return (launch.int_array([lc for lc, _ in checks]),
+            launch.int_array([right_var_cols[rc] for _, rc in checks]), len(checks),
+            *_col_array(tuple(right_var_cols[rc] for rc in right_extra)))
 
 
 def _as_tuples(pairs):

@@ -44,7 +44,8 @@ LAUNCH_COUNTS: Dict[str, int] = {
 
 
 REGIME_COUNTS: Dict[Tuple[str, str], int] = {
-    ("probe", "warp_search"): 0, ("join_tables", "block"): 0, ("join_tables", "global"): 0,
+    ("probe", "warp_search"): 0, ("index_join", "block"): 0, ("index_join", "global"): 0,
+    ("join_tables", "block"): 0, ("join_tables", "global"): 0,
     ("anti_join", "shared"): 0, ("anti_join", "global"): 0,
     ("multiway", "block"): 0, ("multiway", "filter"): 0, ("multiway", "global"): 0,
 }
@@ -80,10 +81,10 @@ _SP = ctypes.POINTER(ctypes.c_char_p)
 #: c_void_p, so no pointer is ever cut to 32 bits)
 _SIGNATURES = {
     "das_probe_terms": [_I32, ctypes.c_char_p, _IP, _SP, _P],
+    "das_index_join_scratch": [_I64, _I64],
     "das_index_join": [
         _P, _P, _I64, _I32, _I32, _I64, _P, _I64, _P, _P, _I64, _I32,
-        _IP, _IP, _I32, _IP, _I32, _I64,
-        _P, _P, _P, _P, _I64, _P, _P, _P, _P,
+        _IP, _IP, _I32, _IP, _I32, _I64, _P, _P, _P, _P, _IP, _SP, _P,
     ],
     "das_join_tables_scratch": [_I64, _I64, _I64],
     "das_join_tables": [
@@ -104,7 +105,8 @@ _SIGNATURES = {
 }
 #: result types other than the int error code
 _RESTYPES = {"das_anti_join_scratch": _I64, "das_multiway_scratch": _I64,
-             "das_join_tables_scratch": _I64, "das_error_name": ctypes.c_char_p}
+             "das_join_tables_scratch": _I64, "das_index_join_scratch": _I64,
+             "das_error_name": ctypes.c_char_p}
 
 
 def _sources():

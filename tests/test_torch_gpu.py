@@ -33,11 +33,19 @@ def _probe_inputs(rng, n, arity, key_dtype, key_span):
     return keys, perm, targets
 
 
-def _index_inputs(rng, m, type_key, span):
-    targets = rng.integers(0, span, (m, 2)).astype(np.int32)
-    keyarr = (np.int64(type_key) << 32) | targets[:, 0].astype(np.int64)
-    perm = np.argsort(keyarr, kind="stable").astype(np.int32)
-    return keyarr[perm], perm, targets
+def _index_inputs(rng, m, type_key, span, capacity=None):
+    """A (type<<32|target) posting index over target position 0 of m link
+    rows, padded to `capacity` as the store pads (keys with int64 max, perm
+    and targets with 0)."""
+    capacity = m + 48 if capacity is None else capacity
+    targets = np.zeros((capacity, 2), np.int32)
+    targets[:m] = rng.integers(0, span, (m, 2))
+    keyarr = (np.int64(type_key) << 32) | targets[:m, 0].astype(np.int64)
+    perm = np.zeros(capacity, np.int32)
+    perm[:m] = np.argsort(keyarr, kind="stable")
+    keys = np.full(capacity, np.iinfo(np.int64).max, np.int64)
+    keys[:m] = keyarr[perm[:m]]
+    return keys, perm, targets
 
 
 #: (key dtype, key, fixed values, var_cols, eq_pairs, extra_fixed)
@@ -157,13 +165,17 @@ def test_multiway_kernel_matches_plain_on_card():
 
 @pytest.mark.gpu
 def test_regimes_match_plain_on_card():
-    """Every regime of kernels 4 and 5 against the plain versions on the same
+    """Every regime of kernels 3-5 against the plain versions on the same
     CUDA tensors, exactly, each call asserted to have taken its regime: the
-    anti join's shared and global sets (all-invalid and empty right sides
-    included), and the multiway block, filter and global regimes, with keys
-    v and ~v (whose mixed keys collide), INT32_MIN / INT32_MAX, masked tail
-    rows equal to a left value, the wraparound shape, 18 tails and 30 tails
-    (more than the kernel parameters hold)."""
+    index join's block (1 launch) and global regimes over a padded posting
+    index (totals and windows past capacity, all-invalid, empty and one-row
+    left sides, negative join values, a failing second pair, no
+    right_extra, an empty key column), the anti join's shared and global
+    sets (all-invalid and empty right sides included), and the multiway
+    block, filter and global regimes, with keys v and ~v (whose mixed keys
+    collide), INT32_MIN / INT32_MAX, masked tail rows equal to a left value,
+    the wraparound shape, 18 tails and 30 tails (more than the kernel
+    parameters hold)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the hand-written kernels only run on the GPU")
     from das_tpu_torch.kernels import launch
@@ -173,6 +185,52 @@ def test_regimes_match_plain_on_card():
 
     def c(x):
         return _t(x).to(dev)
+
+    keys, perm, targets = (c(x) for x in _index_inputs(rng, 60000, 5, 3000, 1 << 16))
+    skew = tuple(c(x) for x in _index_inputs(rng, 2000, 5, 4))
+
+    def index(left, pairs, extra, cap, regime, launches=None, index=(keys, perm, targets)):
+        args = (c(left[0]), c(left[1]), *index, 5, pairs, (0, 1), extra, cap)
+        want = kernels.index_join_plain(*args)
+        got = kernels.index_join(*args)
+        for w, g in zip(want, got):
+            assert w.dtype == g.dtype and w.shape == g.shape and torch.equal(w, g)
+        assert launch.LAST_REGIME["index_join"] == regime
+        if launches is not None:
+            assert launch.DEVICE_LAUNCHES["index_join"] == launches
+        return int(got[2]), int(got[1].sum())
+
+    one, two = ((0, 0),), ((0, 0), (1, 1))
+    small = _table(rng, 16, 2, 3000)
+    negative = (small[0].copy(), np.ones(16, bool))
+    negative[0][::3, 0] = -negative[0][::3, 0] - 1
+    for cap in (2048, 4):
+        total, valid = index(small, one, (1,), cap, "block", 1)
+        assert valid == min(total, cap) and (total > cap) == (cap == 4)
+    assert index((small[0], small[1] & False), one, (1,), 64, "block", 1) == (0, 0)
+    assert index((small[0][:0], small[1][:0]), one, (1,), 64, "block", 1) == (0, 0)
+    assert index((small[0][:1], np.ones(1, bool)), one, (), 64, "block", 1)[0] > 0
+    index(negative, one, (1,), 2048, "block", 1)
+    total, valid = index(small, two, (), 2048, "block", 1)
+    assert valid < total
+    assert index(_table(rng, 4, 2, 4), one, (1,), 256, "block", 1, skew)[0] > 256
+    empty_index = (c(np.zeros(0, np.int64)), c(np.zeros(0, np.int32)), targets)
+    assert index(small, one, (1,), 64, "block", 1, empty_index) == (0, 0)
+    # the block regime's limits: 128 rows, cap 16,384, rows x cap <= 2^19
+    limit = _table(rng, 129, 2, 3000)
+    rows = lambda n: (limit[0][:n], limit[1][:n])   # noqa: E731
+    index(rows(128), one, (1,), 4096, "block", 1)
+    index(limit, one, (1,), 4096, "global", 3)
+    index(rows(64), one, (1,), 8192, "block", 1)
+    index(rows(64), one, (1,), 8200, "global", 3)
+    index(small, one, (1,), 16384, "block", 1)
+    big = _table(rng, 4096, 2, 3000)
+    for cap in (1 << 16, 512):
+        total, valid = index(big, one, (1,), cap, "global", 5)
+        assert (total > cap) == (cap == 512)
+    index((big[0], big[1] & False), two, (), 4096, "global", 5)
+    index(small, one, (1,), 20000, "global", 3)              # cap past the block regime's
+    assert index((small[0][:0], small[1][:0]), one, (1,), 20000, "global", 1) == (0, 0)
 
     def anti(left, right, pairs, regime):
         args = (c(left[0]), c(left[1]), c(right[0]), c(right[1]), pairs)

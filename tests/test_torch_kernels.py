@@ -8,6 +8,8 @@ the single-block and the grid-chunked layout (forced through the JAX
 bytes planner's DAS_TPU_VMEM_BUDGET).  The same wrappers on the card are
 held against these plain versions by tests/test_torch_gpu.py."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -94,11 +96,19 @@ def test_probe_plain_matches_tpu_kernel(case, layout):
     assert int(got[2]) > 64
 
 
-def _index_inputs(rng, m, type_key, span):
-    targets = rng.integers(0, span, (m, 2)).astype(np.int32)
-    keyarr = (np.int64(type_key) << 32) | targets[:, 0].astype(np.int64)
-    perm = np.argsort(keyarr, kind="stable").astype(np.int32)
-    return keyarr[perm], perm, targets
+def _index_inputs(rng, m, type_key, span, capacity=None):
+    """A (type<<32|target) posting index over target position 0 of m link
+    rows, padded to `capacity` as the store pads: keys with int64 max, perm
+    and the targets rows with 0."""
+    capacity = m + 48 if capacity is None else capacity
+    targets = np.zeros((capacity, 2), np.int32)
+    targets[:m] = rng.integers(0, span, (m, 2))
+    keyarr = (np.int64(type_key) << 32) | targets[:m, 0].astype(np.int64)
+    perm = np.zeros(capacity, np.int32)
+    perm[:m] = np.argsort(keyarr, kind="stable")
+    keys = np.full(capacity, np.iinfo(np.int64).max, np.int64)
+    keys[:m] = keyarr[perm[:m]]
+    return keys, perm, targets
 
 
 @pytest.mark.parametrize("pairs,extra", [(((0, 0),), (1,)), (((1, 0), (0, 1)), ())])
@@ -108,7 +118,7 @@ def test_index_join_plain_matches_tpu_kernel(pairs, extra, layout):
     lv, lm = _table(rng, 300, 2, 40)
     for cap in (3000, 256):
         if cap == 3000:
-            _route(budget.index_join_plan(300, 2, 2000, 2000, 2, 2 + len(extra), cap),
+            _route(budget.index_join_plan(300, 2, 2048, 2048, 2, 2 + len(extra), cap),
                    layout)
         want = index_join_impl(lv, lm, keys, perm, targets, np.int64(5), pairs,
                                (0, 1), extra, cap, interpret=True)
@@ -416,3 +426,157 @@ def test_join_group_windows_sentinel_keys(regime):
     for i in range(key_l.shape[0]):
         assert grouped[lo[i]:lo[i] + cnt[i]] == order[want_lo[i]:want_hi[i]].tolist()
     assert min(cnt[i] for i in range(0, 300, 7)) > 0      # 2^63-1 met 2^63-1
+
+
+# -- the index join's one-block and grid designs (csrc/index_join.cu), mirrored --
+
+#: csrc/index_join.cu: the block regime's cluster (blocks, threads a block),
+#: the slots a thread expands per pass and the grid regime's block width
+IJ_CLUSTER, IJ_CLUSTER_THREADS, IJ_SLOTS, IJ_GRID_THREADS = 8, 256, 2, 256
+
+
+def _equal_range(keys, q):
+    """ij_equal_range in Python: the lower and upper bound of q by two binary
+    searches whose steps interleave; both end within ceil(log2(n + 1))
+    steps."""
+    l0, l1, h0, h1, steps = 0, len(keys), 0, len(keys), 0
+    while l0 < l1 or h0 < h1:
+        ml, mh = (l0 + l1) >> 1, (h0 + h1) >> 1
+        if l0 < l1:
+            l0, l1 = (ml + 1, l1) if keys[ml] < q else (l0, ml)
+        if h0 < h1:
+            h0, h1 = (mh + 1, h1) if keys[mh] <= q else (h0, mh)
+        steps += 1
+    assert steps <= max(1, len(keys)).bit_length()
+    return l0, h0
+
+
+def _block_scan(counts, threads):
+    """das_block_scan in Python: each thread sums one contiguous chunk, the
+    chunk sums are scanned across the block, each chunk then scans itself;
+    all in uint64."""
+    n = len(counts)
+    per = -(-n // threads)
+    out, run = [], 0
+    for t in range(threads):
+        for c in counts[t * per:(t + 1) * per]:
+            run = (run + c) & _U64
+            out.append(run)
+    return out
+
+
+def _grid_scan(counts, tile=2048):
+    """das_scan_i64 in Python: a scan of each 2,048-count tile, the tile sums
+    scanned by the same passes, then each tile's prefix added; uint64."""
+    tiles = [_block_scan(counts[b:b + tile], 1) for b in range(0, len(counts), tile)]
+    if len(tiles) <= 1:
+        return tiles[0] if tiles else []
+    sums = _grid_scan([t[-1] for t in tiles], tile)
+    return [(v + (sums[b - 1] if b else 0)) & _U64 for b, t in enumerate(tiles) for v in t]
+
+
+def _index_join_mirror(lv, lm, keys, perm, targets, type_key, pairs, right_var_cols, extra,
+                       cap, regime):
+    """csrc/index_join.cu in Python.  `block` (one cluster of 8 blocks):
+    search k (row k // 2, the upper bound when k is odd) belongs to block
+    k % 8, each the 32-way search of _warp_search, an invalid row
+    unsearched; every block reads the bounds from their owners, scans the
+    masked counts with its 256 threads and expands its share of each pass
+    of 2 x 8 x 256 slots.  `global`: per row the interleaved binary
+    searches, the device-wide scan, the expand grid.  Each slot: its left
+    row by an upper bound over the offsets, its key lo + j - prev, perm and
+    targets clipped, the pairs after the first checked, [left |
+    right_extra]."""
+    n_left, kl = lv.shape
+    n_keys, n_rows = keys.shape[0], targets.shape[0]
+    column = keys.tolist()
+    lo, hi = [0] * n_left, [0] * n_left
+    if regime == "block":
+        found = [{} for _ in range(IJ_CLUSTER)]     # each block's shared bounds
+        for k in range(2 * n_left):
+            i = k >> 1
+            if lm[i]:
+                q = (type_key << 32) | int(lv[i, pairs[0][0]])   # sign-extended
+                found[k % IJ_CLUSTER][k] = _warp_search(column, q, bool(k & 1))[0]
+        for i in range(n_left):
+            if lm[i]:
+                lo[i] = found[(2 * i) % IJ_CLUSTER][2 * i]
+                hi[i] = found[(2 * i + 1) % IJ_CLUSTER][2 * i + 1]
+    else:
+        for i in range(n_left):
+            if lm[i]:
+                lo[i], hi[i] = _equal_range(column, (type_key << 32) | int(lv[i, pairs[0][0]]))
+    counts = [h - l if m else 0 for l, h, m in zip(lo, hi, lm)]
+    offsets = (_block_scan(counts, IJ_CLUSTER_THREADS) if regime == "block"
+               else _grid_scan(counts))
+    total = offsets[-1] if n_left else 0
+    out = np.zeros((cap, kl + len(extra)), np.int32)
+    ov = np.zeros(cap, bool)
+    lanes = (IJ_CLUSTER * IJ_CLUSTER_THREADS if regime == "block"
+             else IJ_GRID_THREADS * -(-cap // (IJ_SLOTS * IJ_GRID_THREADS)))
+    tile = IJ_SLOTS * lanes
+    for j0 in range(0, cap, tile):
+        for j in range(j0, min(j0 + tile, cap, total)):
+            li = min(int(np.searchsorted(offsets, j, side="right")), n_left - 1)
+            prev = offsets[li - 1] if li else 0
+            ri = min(max(lo[li] + j - prev, 0), n_keys - 1)
+            row = targets[min(max(int(perm[ri]), 0), n_rows - 1)]
+            if all(row[right_var_cols[rc]] == lv[li, lc] for lc, rc in pairs[1:]):
+                out[j] = np.concatenate([lv[li], row[[right_var_cols[rc] for rc in extra]]])
+                ov[j] = True
+    return _t(out), _t(ov), torch.tensor(total, dtype=torch.int64)
+
+
+def _index_cases():
+    rng = np.random.default_rng(71)
+    keys, perm, targets = _index_inputs(rng, 2000, 5, 40)
+    lv, lm = _table(rng, 300, 2, 40)            # ~50 keys a value: 300 rows pass cap
+    skew_keys, skew_perm, skew_targets = _index_inputs(rng, 2000, 5, 4)   # ~500 a value
+    few = (lv[:50], lm[:50])                    # a total below cap: slots past it zeroed
+    negative = few[0].copy()
+    negative[::5, 0] = -rng.integers(1, 40, negative[::5].shape[0])
+    one, two = ((0, 0),), ((0, 0), (1, 1))
+    index = (keys, perm, targets, 5)
+    return {
+        "one_pair": (*few, *index, one, (0, 1), (1,), 3000),
+        "total_past_cap": (lv, lm, *index, one, (0, 1), (1,), 256),
+        "window_past_cap": (lv[:4], np.ones(4, bool), skew_keys, skew_perm, skew_targets, 5,
+                            one, (0, 1), (1,), 256),
+        "all_invalid_left": (lv, lm & False, *index, one, (0, 1), (1,), 3000),
+        "negative_join_value": (negative, few[1] | True, *index, one, (0, 1), (1,), 3000),
+        "failing_second_pair": (*few, *index, two, (0, 1), (), 3000),
+        "no_right_extra": (*few, *index, one, (0, 1), (), 3000),
+        "one_left_row": (lv[:1], np.ones(1, bool), *index, one, (0, 1), (1,), 64),
+    }
+
+
+INDEX_CASES = _index_cases()
+
+
+@functools.lru_cache(maxsize=None)
+def _index_reference(name, layout):
+    lv, lm, keys, perm, targets, tk, pairs, rvc, extra, cap = INDEX_CASES[name]
+    return index_join_impl(lv, lm, keys, perm, targets, np.int64(tk), pairs, rvc, extra, cap,
+                           interpret=True)
+
+
+@pytest.mark.parametrize("regime", ["block", "global"])
+@pytest.mark.parametrize("name", sorted(INDEX_CASES))
+def test_index_join_mirror_matches_tpu_kernel(name, regime, layout):
+    args = INDEX_CASES[name]
+    got = _index_join_mirror(*args, regime)
+    for w, g in zip(_index_reference(name, layout), got):
+        _same(w, g)
+    total, valid = int(got[2]), int(got[1].sum())
+    if name.endswith("past_cap"):
+        assert total > args[-1]
+    elif name == "all_invalid_left":
+        assert total == 0
+    elif name == "failing_second_pair":
+        assert 0 < valid < total < args[-1]       # failed slots count in the total
+    else:
+        assert valid == total < args[-1]
+    if name == "negative_join_value":            # the sign-extended probes find nothing
+        lv, lm = args[:2]
+        masked = _index_join_mirror(lv, lm & (lv[:, 0] >= 0), *args[2:], regime)
+        assert total == int(masked[2]) and bool((got[0][:, 0] >= 0).all())
