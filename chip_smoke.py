@@ -46,7 +46,22 @@ Phases, one JSON line each:
                against numpy; the triangle's answer set on the SMALL
                configuration against the host algebra.  The queries
                are planned by the cost planner (the default config);
-  4. planned — the planner's path, from a fresh executor: 32 grounded
+  4. serving — the batched serving path through the public API on the same
+               store: one query_many of the slice's 32 grounded and 32 Not
+               queries plus 8 in-batch duplicates (every answer against
+               numpy and against query(); host fetches equal to the batch's
+               retry rounds; 72 fused, 0 staged, 0 host); the batch again
+               from the result cache (0 launches, 0 fetches); 64 grounded
+               queries on other genes in 4 groups of 16, group k+1
+               dispatched before group k settles; query_many_dispatch of 16
+               queries queued behind a sleep kernel with the cache off (the
+               dispatch half must not wait); the 16 reseed shapes of phase
+               count_batch through query_many and query_answer (fused, by
+               the exact program; answers against a numpy evaluation of the
+               reference fold); and on the SMALL configuration a batch
+               dispatched, then a Member link loaded, then settled (the new
+               link is in the answer);
+  5. planned — the planner's path, from a fresh executor: 32 grounded
                stars Member($V1, p1) and Member($V1, p2) and
                Interacts(g, $V1), 8 fan-out stars Member($V1, p) and
                Member($V1, $P2) and Interacts($V1, $V2), and the 32
@@ -56,7 +71,7 @@ Phases, one JSON line each:
                answer is checked against numpy, and again with the
                multiway step off (stars), the planner off (grounded) and,
                for a family auto routed none of, the multiway step on;
-  5. count_batch — 256 grounded queries counted in one count_batch call
+  6. count_batch — 256 grounded queries counted in one count_batch call
                after a warm call: per-query ms, groups, lanes after dedup,
                host fetches; every count against numpy.  Then a check
                list on the card: 64 grounded queries (48 with non-empty
@@ -77,10 +92,12 @@ the das_tpu_torch package beside it, the script exits non-zero."""
 from __future__ import annotations
 
 import argparse
+import ast
 import json
 import math
 import os
 import random
+import re
 import subprocess
 import sys
 import time
@@ -151,9 +168,9 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def queued_host_ms(fn):
+def queued_host_ms(fn, cycles: int = 100_000_000):
     """(host ms of fn(), ms until the card is done) with fn queued behind a
-    sleep kernel of ~10^8 cycles: the first is far below the second when
+    sleep kernel of `cycles` cycles: the first is far below the second when
     fn only enqueues work and never waits on the stream."""
     import torch
 
@@ -161,7 +178,7 @@ def queued_host_ms(fn):
     torch.cuda._sleep(1000)       # the sleep kernel's own first launch is slow
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    torch.cuda._sleep(100_000_000)
+    torch.cuda._sleep(cycles)
     fn()
     host = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
@@ -300,6 +317,18 @@ class HostKB:
         if not len(self.procs(g1)) or not len(self.procs(g2)):
             return 0
         return max(len(shared), 1) * n3
+
+    def reseed_answer(self, g1, g2, g3):
+        """The answer of the same query under the reference fold, as
+        {frozenset((variable, row))}: (V3, V2) pairs when g1 and g2 share a
+        process, else the re-seeded Interacts term's V2 alone."""
+        if not len(self.procs(g1)) or not len(self.procs(g2)):
+            return set()
+        shared = set(self.procs(g1).tolist()) & set(self.procs(g2).tolist())
+        partners = set(self.partners(g3).tolist())
+        if shared:
+            return {frozenset({("V3", p), ("V2", v)}) for p in shared for v in partners}
+        return {frozenset({("V2", v)}) for v in partners}
 
     def reseed_triples(self, seed, n):
         """n (g1, g2, g3) gene rows: half the pairs share a process, half
@@ -857,7 +886,7 @@ def phase_slice(args, das, data, genes, large, small):
         "routes": routes, "launches": launches, "regimes": regimes, "host_fetches": fetches,
         "host_algebra_checked": host_checked + 1, "small_triangle_rows": small_tri,
     })
-    return launches
+    return launches, p50
 
 
 def _gene_row(das, gene_name):
@@ -866,6 +895,265 @@ def _gene_row(das, gene_name):
 
 def _p50(times):
     return sorted(times)[len(times) // 2]
+
+
+# ---- phase 4 ---------------------------------------------------------------------
+
+
+def parse_answer(das, s):
+    """{frozenset((variable, row))} of an answer string of query() or
+    query_many(): each assignment prints as its variable -> handle dict."""
+    row = das.db.fin.row_of_hex
+    return {frozenset((k, row[h]) for k, h in ast.literal_eval(d).items())
+            for d in re.findall(r"\{[^{}]*\}", s)}
+
+
+def grounded_answer(host, das, gene_name, negate):
+    """The numpy answer of grounded_query as {frozenset((variable, row))}."""
+    return {frozenset({("V2", v2), ("V3", p)})
+            for v2, p in host.grounded(_gene_row(das, gene_name), negate)}
+
+
+class DispatchRounds:
+    """While active, records each fused job's latest round at its dispatch
+    (`rounds[job]`): a batch's retry rounds are the largest of its jobs'."""
+
+    def __enter__(self):
+        from das_tpu_torch.query import fused
+
+        self.rounds = {}
+        self._dispatch = fn = fused._ExecJob.dispatch
+
+        def dispatch(job):
+            out = fn(job)
+            self.rounds[job] = job.rounds
+            return out
+
+        fused._ExecJob.dispatch = dispatch
+        return self
+
+    def __exit__(self, *exc):
+        from das_tpu_torch.query import fused
+
+        fused._ExecJob.dispatch = self._dispatch
+        return False
+
+
+class ExactCalls:
+    """While active, counts FusedExecutor.execute_exact calls."""
+
+    def __enter__(self):
+        from das_tpu_torch.query.fused import FusedExecutor
+
+        self.n = 0
+        self._fn = fn = FusedExecutor.execute_exact
+
+        def execute_exact(ex, *a, **kw):
+            self.n += 1
+            return fn(ex, *a, **kw)
+
+        FusedExecutor.execute_exact = execute_exact
+        return self
+
+    def __exit__(self, *exc):
+        from das_tpu_torch.query.fused import FusedExecutor
+
+        FusedExecutor.execute_exact = self._fn
+        return False
+
+
+def other_genes(host, gene_names, used, seed, n=64, n_nonempty=32):
+    """n gene names outside `used`, n_nonempty of them with non-empty
+    grounded answers."""
+    rng = random.Random(seed)
+    name_of_row = dict(zip(host.gene_rows.tolist(), gene_names))
+    nonempty = sorted(name_of_row[r] for r in host.nonempty_genes().tolist()
+                      if name_of_row[r] not in used)
+    picks = rng.sample(nonempty, n_nonempty)
+    rest = sorted(set(gene_names) - set(used) - set(picks))
+    return picks + rng.sample(rest, n - n_nonempty)
+
+
+def phase_serving(args, das, data, genes, host, smi, slice_p50):
+    """The batched serving path (query_many, query_many_dispatch and the
+    result cache) through the public API on the slice's store.  Counters
+    zeroed just before each part, read just after."""
+    import torch
+
+    from das_tpu_torch.api.atomspace import DistributedAtomSpace
+    from das_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from das_tpu_torch.query import compiler
+    from das_tpu_torch.query.fused import FETCH_COUNTS, result_cache_stats
+
+    gene_names = [data.nodes[h].name for h in genes]
+    chosen = pick_genes(host, gene_names, args.seed)
+    batch = [grounded_query(g) for g in chosen] + [grounded_query(g, True) for g in chosen]
+    want = [grounded_answer(host, das, g, neg) for neg in (False, True) for g in chosen]
+    dup = list(range(4)) + list(range(32, 36))
+    batch += [batch[i] for i in dup]
+    want += [want[i] for i in dup]
+
+    def delta(before, after):
+        return {k: after[k] - before[k] for k in before}
+
+    # -- the batch: counters zeroed just before, read just after ---------------
+    torch.cuda.synchronize()
+    compiler.reset_route_counts()
+    reset_launch_counts()
+    f0, c0 = FETCH_COUNTS["n"], result_cache_stats(das.db)
+    with DispatchRounds() as dr:
+        t0 = time.perf_counter()
+        answers = das.query_many(batch)
+        batch_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    launches = dict(LAUNCH_COUNTS)
+    routes = dict(compiler.ROUTE_COUNTS)
+    fetches = FETCH_COUNTS["n"] - f0
+    cache_first = delta(c0, result_cache_stats(das.db))
+    rounds = max(dr.rounds.values())
+    if fetches != rounds:
+        raise AssertionError(f"serving batch: {fetches} host fetches for {rounds} retry rounds")
+    if routes["fused"] != len(batch) or routes["staged"] or routes["host"]:
+        raise AssertionError(f"serving batch left the fused route: {routes}")
+    idle = [k for k in ("probe", "index_join", "join_tables", "anti_join") if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on the serving path: {idle}")
+    for i, (s, w) in enumerate(zip(answers, want)):
+        if parse_answer(das, s) != w:
+            raise AssertionError(f"serving batch entry {i} differs from the numpy reference")
+    if answers != [das.query(q) for q in batch]:
+        raise AssertionError("serving batch strings differ from query()'s")
+
+    # -- the same batch from the result cache ----------------------------------
+    reset_launch_counts()
+    f0, c0 = FETCH_COUNTS["n"], result_cache_stats(das.db)
+    t0 = time.perf_counter()
+    again = das.query_many(batch)
+    cached_ms = (time.perf_counter() - t0) * 1e3
+    cached_launches = sum(LAUNCH_COUNTS.values())
+    cache_repeat = delta(c0, result_cache_stats(das.db))
+    if again != answers or cached_launches or FETCH_COUNTS["n"] != f0:
+        raise AssertionError(f"cached batch: {cached_launches} launches, "
+                             f"{FETCH_COUNTS['n'] - f0} fetches, equal={again == answers}")
+    # a duplicate of a hit looks the cache up itself (the in-batch dedup
+    # keys only dispatched jobs), so every one of the 72 entries hits
+    if cache_repeat["hits"] != len(batch) or cache_repeat["misses"]:
+        raise AssertionError(f"cached batch: cache statistics moved by {cache_repeat}")
+
+    # -- pipelined: group k+1 dispatched before group k settles ----------------
+    fresh = other_genes(host, gene_names, set(chosen), args.seed + 5)
+    groups = [fresh[16 * k:16 * (k + 1)] for k in range(4)]
+    reset_launch_counts()
+    f0 = FETCH_COUNTS["n"]
+    pend, settled = [], []
+    with DispatchRounds() as dr:
+        t0 = time.perf_counter()
+
+        def dispatch(k):
+            job = das.query_many_dispatch([grounded_query(g) for g in groups[k]])
+            pend.append((job, [j for _i, j, _k in job.pending.jobs]))
+
+        dispatch(0)
+        for k in range(4):
+            if k + 1 < len(groups):
+                dispatch(k + 1)
+            settled.append(pend[k][0].settle())
+        pipe_ms = (time.perf_counter() - t0) * 1e3
+    pipe_fetches = FETCH_COUNTS["n"] - f0
+    pipe_rounds = sum(max(dr.rounds[j] for j in jobs) for _job, jobs in pend)
+    if pipe_fetches != pipe_rounds:
+        raise AssertionError(f"pipelined: {pipe_fetches} fetches for {pipe_rounds} rounds")
+    for group, out in zip(groups, settled):
+        for g, s in zip(group, out):
+            if parse_answer(das, s) != grounded_answer(host, das, g, False):
+                raise AssertionError(f"pipelined answer for {g} differs from numpy")
+
+    # -- the dispatch half must not wait (cache off: both calls dispatch) ------
+    cfg = das.db.config
+    size, cfg.result_cache_size = cfg.result_cache_size, 0
+    held = []
+    try:
+        q16 = [grounded_query(g) for g in groups[0]]
+        dispatch_host_ms, dispatch_card_ms = queued_host_ms(
+            lambda: held.append(das.query_many_dispatch(q16)), cycles=1_000_000_000)
+        for job in held:
+            for g, s in zip(groups[0], job.settle()):
+                if parse_answer(das, s) != grounded_answer(host, das, g, False):
+                    raise AssertionError(f"queued dispatch: answer for {g} differs from numpy")
+    finally:
+        cfg.result_cache_size = size
+    if dispatch_host_ms * 10 > dispatch_card_ms:
+        raise AssertionError(f"query_many_dispatch waited on the card: {dispatch_host_ms} ms "
+                             f"of {dispatch_card_ms}")
+
+    # -- the reseed shapes, answered by the exact program ----------------------
+    def name(r):
+        return data.nodes[host.fin.hex_of_row[r]].name
+
+    triples = host.reseed_triples(args.seed + 3, 16)
+    rq = [reseed_query(*map(name, t)) for t in triples]
+    rwant = [host.reseed_answer(*t) for t in triples]
+    disjoint = sum(not (set(host.procs(a).tolist()) & set(host.procs(b).tolist()))
+                   for a, b, _c in triples)
+    compiler.reset_route_counts()
+    reset_launch_counts()
+    with ExactCalls() as exact:
+        rout = das.query_many(rq)
+        rsingle = [answer_set(das, q)[1] for q in rq]
+    reseed_routes = dict(compiler.ROUTE_COUNTS)
+    reseed_launches = dict(LAUNCH_COUNTS)
+    if reseed_routes["fused"] != 2 * len(rq) or reseed_routes["staged"] or reseed_routes["host"]:
+        raise AssertionError(f"reseed shapes left the fused route: {reseed_routes}")
+    if exact.n != 2 * disjoint:
+        raise AssertionError(f"{exact.n} exact runs for {disjoint} re-seeded shapes, twice")
+    row = das.db.fin.row_of_hex
+    for i, (s, single, w) in enumerate(zip(rout, rsingle, rwant)):
+        got_single = {frozenset((k, row[h]) for k, h in a) for a in single}
+        if parse_answer(das, s) != w or got_single != w:
+            raise AssertionError(f"reseed shape {i} differs from the reference fold in numpy")
+
+    # -- a batch dispatched before a load settles on the loaded store ----------
+    sdata, sgenes = build_kb(SMALL, args.seed)
+    shost = HostKB(sdata, sgenes)
+    sdas = DistributedAtomSpace(backend="tensor", data=sdata, device=DEVICE)
+    proc = sdata.nodes[shost.fin.hex_of_row[int(shost.member[0, 1])]].name
+    gname = sdata.nodes[sgenes[0]].name
+    from das_tpu_torch.query.ast import Link, Node, Variable
+
+    sq = [Link("Member", [Variable("V1"), Node("BiologicalProcess", proc)], True),
+          grounded_query(gname)]
+    before = sdas.query_many(sq)
+    job = sdas.query_many_dispatch(sq)
+    sdas.load_metta_text(f'(: "GENE:loaded" Gene)\n(: "{proc}" BiologicalProcess)\n'
+                         f'(Member "GENE:loaded" "{proc}")\n')
+    after = job.settle()
+    loaded = sdas.db.get_node_handle("Gene", "GENE:loaded")
+    if loaded in before[0] or loaded not in after[0] or after != [sdas.query(q) for q in sq]:
+        raise AssertionError("the batch dispatched before the load missed the loaded link")
+    if len(parse_answer(sdas, after[0])) != len(parse_answer(sdas, before[0])) + 1:
+        raise AssertionError("the loaded link did not add exactly one answer")
+
+    emit({
+        "phase": "serving", "card": smi,
+        "batch": {"entries": len(batch), "duplicates": len(dup), "ms": batch_ms,
+                  "per_query_ms": batch_ms / len(batch), "host_fetches": fetches,
+                  "retry_rounds": rounds, "routes": routes, "launches": launches,
+                  "cache": cache_first},
+        "cached": {"ms": cached_ms, "per_query_ms": cached_ms / len(batch),
+                   "launches": cached_launches, "host_fetches": 0, "cache": cache_repeat},
+        "pipelined": {"groups": len(groups), "per_group": 16, "depth": 2, "ms": pipe_ms,
+                      "per_query_ms": pipe_ms / 64, "host_fetches": pipe_fetches,
+                      "retry_rounds": pipe_rounds},
+        "slice_serial_p50_ms": slice_p50,
+        "dispatch_queued": {"queries": 16, "host_ms": dispatch_host_ms,
+                            "card_ms": dispatch_card_ms},
+        "reseed": {"shapes": len(rq), "re_seeded": disjoint, "exact_runs": exact.n,
+                   "routes": reseed_routes, "launches": reseed_launches},
+        "stale": {"answers_before": len(parse_answer(sdas, before[0])),
+                  "answers_after": len(parse_answer(sdas, after[0]))},
+        "cache_stats": result_cache_stats(das.db),
+    })
+    return launches
 
 
 def star_families(args, data, genes, host, das):
@@ -1088,7 +1376,7 @@ def main(argv=None) -> int:
     from das_tpu_torch.api.atomspace import DistributedAtomSpace
 
     t_start = time.perf_counter()
-    phase_card()
+    smi = phase_card()
 
     cfg = scaled(FLYBASE, args.scale)
     t0 = time.perf_counter()
@@ -1119,7 +1407,10 @@ def main(argv=None) -> int:
     families = star_families(args, data, genes, host, das)
     timing = phase_kernels(das, main_gene, families["grounded_star"][0][0],
                            families["fanout_star"][0][0], args.iters)
-    launches = phase_slice(args, das, data, genes, (ldas, ldata, lgenes), small)
+    launches, slice_p50 = phase_slice(args, das, data, genes, (ldas, ldata, lgenes), small)
+    serving = phase_serving(args, das, data, genes, host, smi, slice_p50)
+    for name in ("probe", "index_join", "join_tables", "anti_join"):
+        launches[name] += serving[name]
     launches["multiway"] = phase_planned(das, families)["multiway"]
     phase_count_batch(args, das, data, genes, host)
 

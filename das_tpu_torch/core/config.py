@@ -13,7 +13,10 @@ config only (no environment variable):
     multiway step (kernels/multiway.py): "auto" = when the byte model says
     it beats the binary chain (>= 3 clauses), "on" = every eligible prefix
     (>= 2 clauses), "off" = the binary chain only.  Routed by the planner,
-    so `use_planner="off"` turns it off too."""
+    so `use_planner="off"` turns it off too.
+
+`result_cache_size` bounds the fused executor's answered-result cache
+(0 disables it)."""
 
 from __future__ import annotations
 
@@ -30,3 +33,8 @@ class DasConfig:
     pattern_black_list: List[str] = field(default_factory=list)
     use_planner: str = "auto"
     use_multiway: str = "auto"
+    # answered-result cache of the fused executor (query/fused.py
+    # ResultCache): at most this many results per executor, keyed by plan
+    # shape and grounded values and valid for one store generation; the
+    # batched serving path and count_batch consult it.  0 disables it.
+    result_cache_size: int = 256

@@ -26,3 +26,15 @@ class InvalidHandleError(DasError):
 class CapacityOverflowError(DasError):
     """A fixed-capacity device buffer overflowed; the caller retries with a
     larger capacity or falls back to the host algebra."""
+
+
+class BreakerOpenError(DasError):
+    """A batch dispatched in degraded mode (`query_many_dispatch(...,
+    cache_only=True)`): cache hits are answered, but this query needed a
+    fresh device dispatch and was rejected, retryable.  `retry_after_ms`
+    hints when service may resume."""
+
+    def __init__(self, msg: str = "circuit breaker open; retry later",
+                 retry_after_ms: float = None):
+        self.retry_after_ms = retry_after_ms
+        super().__init__(msg)

@@ -3,9 +3,11 @@
 
 A conjunctive query over ordered link patterns compiles to term plans;
 the fused executor (query/fused.py) runs them as kernel launches with one
-host fetch per retry round.  When the fused verdict is a reseed (the
-reference's empty-accumulator quirk) or a capacity ceiling, the staged
-pipeline here answers: per term one probe kernel and an exact dedup, per
+host fetch per retry round, one query at a time or a batch at a time
+(`execute_fused_many_*`).  A reseed verdict (the reference's
+empty-accumulator quirk) re-runs on the exact reference-order program.
+When that declines, or at a capacity ceiling, the staged pipeline here
+answers: per term one probe kernel and an exact dedup, per
 join one join kernel with its own capacity retry, then the anti-joins,
 syncing a count to the host between stages.
 
@@ -275,15 +277,74 @@ def execute_plan(db: TensorDB, plans: List[TermPlan]) -> Optional[BindingTable]:
 
 def _execute_fused(db: TensorDB, plans: List[TermPlan],
                    count_only: bool = False) -> Optional[BindingTable]:
-    """The fused executor's answer, or None when the staged path must
-    answer (reseed verdict, missing bucket, capacity ceiling)."""
-    res = get_executor(db).execute(plans, count_only=count_only)
+    """The fused executor's answer.  A reseed verdict re-runs on the exact
+    reference-order program (`execute_exact`), whose automaton answers the
+    reseed quirk.  None when the staged path must answer: a missing
+    bucket, a capacity ceiling, or a result still flagged."""
+    ex = get_executor(db)
+    res = ex.execute(plans, count_only=count_only)
+    if res is not None and res.reseed_needed:
+        res = ex.execute_exact(plans, count_only=count_only)
     if res is None or res.reseed_needed:
         return None
+    return _binding_table(res)
+
+
+def _binding_table(res) -> BindingTable:
     return BindingTable(
         res.var_names, res.vals, res.valid, res.count,
         host_vals=res.host_vals, host_valid=res.host_valid,
     )
+
+
+def execute_fused_many_dispatch(db: TensorDB, plans_lists: List[List[TermPlan]],
+                                cache_only: bool = False):
+    """First half of the batched path: answer result-cache hits and
+    enqueue the batch's fused rounds, with no host fetch.  Returns the
+    pending handle for the settle calls below.  With cache_only nothing is
+    dispatched."""
+    return get_executor(db).dispatch_many(plans_lists, cache_only=cache_only)
+
+
+def execute_fused_many_settle_iter(db: TensorDB, plans_lists: List[List[TermPlan]], pending):
+    """Streaming second half: yields `(index, BindingTable or None)` as
+    each verdict becomes final.  A reseed-flagged entry is answered in
+    place by the exact program.  None = the caller replays the entry on
+    the staged path: a settle-time decline (capacity ceiling, a result
+    still flagged) yields in verdict order as its round lands, and the
+    dispatch-time declines (no job, no cache hit) yield last."""
+    ex = get_executor(db)
+    seen = [False] * len(plans_lists)
+    for i, res in ex.settle_many_iter(pending):
+        seen[i] = True
+        if res is not None and res.reseed_needed:
+            res = ex.execute_exact(plans_lists[i])
+        if res is None or res.reseed_needed:
+            yield i, None
+            continue
+        yield i, _binding_table(res)
+    for i, done in enumerate(seen):
+        if not done:
+            yield i, None
+
+
+def execute_fused_many_settle(db: TensorDB, plans_lists: List[List[TermPlan]],
+                              pending) -> List[Optional[BindingTable]]:
+    """The list form of execute_fused_many_settle_iter (None = the staged
+    path must answer that entry)."""
+    out: List[Optional[BindingTable]] = [None] * len(plans_lists)
+    for i, table in execute_fused_many_settle_iter(db, plans_lists, pending):
+        out[i] = table
+    return out
+
+
+def execute_fused_many(db: TensorDB,
+                       plans_lists: List[List[TermPlan]]) -> List[Optional[BindingTable]]:
+    """Batched `_execute_fused`: every query dispatched before ONE host
+    fetch per retry round for all of them; declined entries come back
+    None, as from the single path."""
+    pending = execute_fused_many_dispatch(db, plans_lists)
+    return execute_fused_many_settle(db, plans_lists, pending)
 
 
 def materialize(db: TensorDB, table: Optional[BindingTable],
@@ -344,8 +405,10 @@ def dispatch(db, query: LogicalExpression, answer: PatternMatchingAnswer) -> boo
     return matched
 
 
-def count_matches(db: TensorDB, query: LogicalExpression) -> int:
-    """Exact match count without materializing the assignments."""
+def count_matches(db: TensorDB, query: LogicalExpression) -> Optional[int]:
+    """Exact match count without materializing the assignments.  None
+    where the JAX package's tree executor declines: a query that is not a
+    compilable conjunction under `assignment.CONFIG["no_overload"]`."""
     plans = plan_query(db, query)
     if plans is not None:
         n = trivial_plan_count(db, plans)
@@ -355,6 +418,8 @@ def count_matches(db: TensorDB, query: LogicalExpression) -> int:
         if table is None:
             table = execute_plan(db, plans)
         return 0 if table is None else table.count
+    if asn_mod.CONFIG.get("no_overload"):
+        return None
     answer = PatternMatchingAnswer()
     return len(answer.assignments) if query.matched(db, answer) else 0
 

@@ -1,6 +1,7 @@
 """Fused execution of compiled conjunctive queries (port of
 `das_tpu/query/fused.py`: the planned single-query path, the multiway step,
-the exact reference-order program and batched counting).
+the exact reference-order program, the single-device serving pipeline with
+its result cache, and batched counting).
 
 The JAX package traces a whole plan — every probe, join, multiway step and
 anti-join — into ONE jitted program.  Here the same plan runs as an eager
@@ -23,20 +24,30 @@ reference's empty-accumulator reseed verdict without the intermediates
 existing.  Two reference quirks are decided from the stats exactly as in
 the JAX package: an empty positive term is a definitive empty answer, and
 an accumulator that a join empties with positive terms remaining (the
-reseed quirk) — or an empty answer under a reordered fold — sends the query
-to the staged path (query/compiler.py execute_plan), which reproduces it.
+reseed quirk) — or an empty answer under a reordered fold — flags the
+result; the caller re-runs it on the exact reference-order program
+(`execute_exact`, `run_exact`), whose reseed automaton answers it as the
+reference does.
+
+Every execution is an `_ExecJob` with two halves: `dispatch()` enqueues a
+round at the current capacities without waiting for the card, and
+`settle()` reads that round's fetched stats and either finishes or grows
+the capacities for another round.  The serving path (`dispatch_many`,
+`settle_many_iter`) dispatches a whole batch before paying ONE host fetch
+per retry round for all of its jobs together; answered results are kept in
+a `ResultCache` for the store generation.
 
 `count_batch` counts many queries per call: queries group by shape, each
 group runs its lanes one after another on one stream (the eager
 counterpart of `jax.vmap`, identical lanes computed once) with one host
 fetch per retry round per group; entries the greedy order cannot decide
-re-run on the exact reference-order program (`run_exact`), whose reseed
-automaton answers them as the reference does.  Answered counts are kept in
-a `ResultCache` for the store generation."""
+re-run on the exact reference-order program."""
 
 from __future__ import annotations
 
 import copy
+import threading
+import time
 from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -95,15 +106,15 @@ class FusedPlanSig:
 @dataclass
 class FusedResult:
     var_names: Tuple[str, ...]
-    vals: torch.Tensor       # [cap, k] int32 (device)
-    valid: torch.Tensor      # [cap] bool (device)
+    vals: Optional[torch.Tensor]     # [cap, k] int32 (device); None if count-only
+    valid: Optional[torch.Tensor]    # [cap] bool (device)
     count: int
-    reseed_needed: bool      # the staged path must answer
-    stats: np.ndarray        # the final round's stats vector
-    rounds: int              # retry rounds run (one host fetch each)
+    reseed_needed: bool      # the exact reference-order program must answer
     host_vals: Optional[np.ndarray] = None   # fetched with the stats
     host_valid: Optional[np.ndarray] = None
     multiway: bool = False   # answered by a program with a multiway step
+    stats: Optional[np.ndarray] = None   # the final round's stats vector
+    rounds: int = 0          # retry rounds run (one host fetch each)
 
 
 #: largest per-term candidate window the exact (reference-order) program
@@ -457,29 +468,54 @@ def _fold_names(var_names_seq):
     return names, metas
 
 
-def run_exact(sig: FusedExactSig, bucket_arrays, keys, fixed_vals):
+def exact_layout(sig: FusedExactSig):
+    """Static output layout of the exact program: the full-K name order
+    `all_names` (first appearance over the positives), each final state's
+    bound names (`names_per_state[s]`, those of the suffix chain
+    J(s, P-1)) and their columns in the full-K table (`cols_per_state`),
+    and the capacity every state's table is padded to."""
+    positives = [i for i, t in enumerate(sig.terms) if not t.negated]
+    P = len(positives)
+    cap_of = dict(zip(_chain_order(P), sig.chain_caps))
+    all_names, _ = _fold_names([sig.terms[i].var_names for i in positives])
+    names_per_state = tuple(
+        _fold_names([sig.terms[positives[i]].var_names for i in range(s, P)])[0]
+        for s in range(P)
+    )
+    cols_per_state = tuple(
+        tuple(all_names.index(n) for n in names) for names in names_per_state
+    )
+    cap_final = max(
+        cap_of[(s, P - 1)] if s < P - 1 else sig.term_caps[positives[s]] for s in range(P)
+    )
+    return all_names, names_per_state, cols_per_state, cap_final
+
+
+def run_exact(sig: FusedExactSig, bucket_arrays, keys, fixed_vals, count_only: bool = False):
     """The reference And fold EXACTLY, reseed quirk included (the eager
-    count form of the JAX package's build_fused_exact).  Every possible
-    reseed point s gives a static suffix chain J(s, i) = A_s join ... join
-    A_i; all P(P-1)/2 chain joins run, the reference fold runs as a small
+    form of the JAX package's build_fused_exact).  Every possible reseed
+    point s gives a static suffix chain J(s, i) = A_s join ... join A_i;
+    all P(P-1)/2 chain joins run, the reference fold runs as a small
     automaton over their exact counts (state = latest reseed point), and
     the active state's count is reported.  Chain totals are masked to the
     active path so the host never grows capacity for chains never taken.
-    Returns the int64 device stats vector
-    [count, s_active, any_pos_empty, *term_ranges, *masked_chain_totals]."""
+    The int64 device stats vector is
+    [count, s_active, any_pos_empty, *term_ranges, *masked_chain_totals];
+    with count_only it is all that returns.  Otherwise the result is
+    (vals [cap_final, K], valid, stats): every state's final table
+    projected onto the full-K layout of `exact_layout` and padded, the
+    active state's selected on the device."""
     positives = [i for i, t in enumerate(sig.terms) if not t.negated]
     negatives = [i for i, t in enumerate(sig.terms) if t.negated]
     P = len(positives)
     cap_of = dict(zip(_chain_order(P), sig.chain_caps))
+    all_names, final_names, cols_per_state, cap_final = exact_layout(sig)
     dev = bucket_arrays[0][0].device
     zero = torch.zeros((), dtype=torch.int64, device=dev)
 
-    final_names = {}     # s -> bound names of the full suffix chain J(s, P-1)
     chain_meta: Dict[Tuple[int, int], Tuple] = {}
     for s in range(P):
-        final_names[s], metas = _fold_names(
-            [sig.terms[positives[i]].var_names for i in range(s, P)]
-        )
+        _names, metas = _fold_names([sig.terms[positives[i]].var_names for i in range(s, P)])
         for off, meta in enumerate(metas):
             chain_meta[(s, s + 1 + off)] = meta
 
@@ -525,6 +561,7 @@ def run_exact(sig: FusedExactSig, bucket_arrays, keys, fixed_vals):
     masked_totals = [torch.where(used[p], counts[p], zero) for p in _chain_order(P)]
 
     final_counts = {}
+    final_tables = {}
     for s in range(P):
         v, m = chain[(s, P - 1)]
         names_s = final_names[s]
@@ -535,82 +572,172 @@ def run_exact(sig: FusedExactSig, bucket_arrays, keys, fixed_vals):
                 rv, rm = tables[ni]
                 m = kernels.anti_join(v, m, rv, rm, pairs)
         final_counts[s] = _scalar(m.sum())
+        final_tables[s] = (v, m)
     count = torch.where(any_pos_empty, zero, active(final_counts))
-    return torch.stack([count, s_act, _scalar(any_pos_empty), *term_ranges, *masked_totals])
+    stats = torch.stack([count, s_act, _scalar(any_pos_empty), *term_ranges, *masked_totals])
+    if count_only:
+        return stats
+
+    # each state's final table projected onto the full-K layout, padded to
+    # cap_final, the active one selected on the device
+    K = len(all_names)
+    final_vals = torch.zeros((cap_final, K), dtype=torch.int32, device=dev)
+    final_valid = torch.zeros(cap_final, dtype=torch.bool, device=dev)
+    for s in range(P):
+        v, m = final_tables[s]
+        proj = torch.zeros((cap_final, K), dtype=torch.int32, device=dev)
+        proj[: v.shape[0], list(cols_per_state[s])] = v
+        pm = torch.zeros(cap_final, dtype=torch.bool, device=dev)
+        pm[: m.shape[0]] = m
+        sel = s_act == s
+        final_vals = torch.where(sel, proj, final_vals)
+        final_valid = torch.where(sel, pm, final_valid)
+    return final_vals, final_valid & ~any_pos_empty, stats
+
+
+def fetch_many(groups) -> List[List[np.ndarray]]:
+    """ONE host fetch of every tensor of `groups` (a sequence of tensor
+    tuples, e.g. the outputs of a batch's dispatched jobs): every copy is
+    queued into pinned memory without blocking, then the stream is
+    synchronized once.  Returns the host arrays group by group."""
+    FETCH_COUNTS["n"] += 1
+    flat_in = [t for g in groups for t in g]
+    if not flat_in or flat_in[0].device.type != "cuda":
+        host = [t.numpy() for t in flat_in]
+    else:
+        pinned = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in flat_in]
+        for h, t in zip(pinned, flat_in):
+            h.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(flat_in[0].device).synchronize()
+        host = [h.numpy() for h in pinned]
+    out, k = [], 0
+    for g in groups:
+        out.append(host[k:k + len(g)])
+        k += len(g)
+    return out
 
 
 def fetch(*tensors) -> List[np.ndarray]:
-    """ONE host fetch of device tensors: every copy is queued without
-    blocking, then the stream is synchronized once."""
-    FETCH_COUNTS["n"] += 1
-    if tensors[0].device.type != "cuda":
-        return [t.numpy() for t in tensors]
-    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
-    for h, t in zip(host, tensors):
-        h.copy_(t, non_blocking=True)
-    torch.cuda.current_stream(tensors[0].device).synchronize()
-    return [h.numpy() for h in host]
-
-
-#: answered count entries the executor's result cache keeps (LRU)
-RESULT_CACHE_SIZE = 256
+    """ONE host fetch of device tensors (`fetch_many` of one group)."""
+    return fetch_many([tensors])[0]
 
 
 class ResultCache:
-    """Answered counts of `count_batch`, LRU-bounded by
-    `RESULT_CACHE_SIZE` and valid for one store generation
-    (`TensorDB.generation`, bumped by `refresh()`).  The key is the TermPlan
-    tuple, which carries the plan's shape and every grounded value; global
-    rows are stable within a generation, so a hit needs no device work."""
+    """Answered results of the fused executor, valid for one store
+    generation (`TensorDB.generation`, bumped by `refresh()`; it stands in
+    for the JAX package's incremental-commit `delta_version`).
+
+    The key is (per-term plan tuple, count_only): the TermPlan tuple
+    carries the plan's shape and every grounded value, and global rows are
+    stable within a generation, so a hit is the cached `FusedResult`
+    (device tensors and the host copies fetched with them) with no device
+    work and no host fetch.  A generation change clears the cache and
+    counts one invalidation.  Entries are LRU-bounded by
+    `config.result_cache_size` (0 disables the cache); reseed-flagged
+    results are never cached, nor a table wider than `MAX_ENTRY_ROWS`
+    elements, which would pin that much device and host memory."""
+
+    #: widest binding table (rows x columns) one entry may pin
+    MAX_ENTRY_ROWS = 1 << 20
 
     def __init__(self, db):
         self.db = db
         self._data: "OrderedDict" = OrderedDict()
-        self._generation = db.generation
+        self._version = None
+        self._lock = threading.Lock()
         self.stats = {"hits": 0, "misses": 0, "invalidations": 0}
 
     @staticmethod
-    def key(plans):
-        return tuple(
-            (p.arity, p.type_id, p.ctype, p.fixed, p.var_names, p.var_cols, p.eq_pairs,
-             p.negated)
-            for p in plans
+    def key(plans, count_only: bool):
+        return (
+            tuple(
+                (p.arity, p.type_id, p.ctype, p.fixed, p.var_names, p.var_cols, p.eq_pairs,
+                 p.negated)
+                for p in plans
+            ),
+            count_only,
         )
 
-    def _sync_generation(self) -> None:
-        if self.db.generation != self._generation:
+    def limit(self) -> int:
+        return int(getattr(self.db.config, "result_cache_size", 0))
+
+    def version(self):
+        return getattr(self.db, "generation", None)
+
+    def _sync_version(self) -> None:
+        """Caller holds the lock."""
+        v = self.version()
+        if v != self._version:
             if self._data:
                 self.stats["invalidations"] += 1
             self._data.clear()
-            self._generation = self.db.generation
+            self._version = v
 
-    def get(self, key) -> Optional[int]:
-        self._sync_generation()
-        hit = self._data.get(key)
-        if hit is None:
-            self.stats["misses"] += 1
+    def get(self, key) -> Optional[FusedResult]:
+        if self.limit() <= 0:
             return None
-        self._data.move_to_end(key)
-        self.stats["hits"] += 1
-        return hit
+        with self._lock:
+            self._sync_version()
+            hit = self._data.get(key)
+            if hit is None:
+                self.stats["misses"] += 1
+                return None
+            self._data.move_to_end(key)
+            self.stats["hits"] += 1
+            return hit
 
-    def put(self, key, count: int) -> None:
-        self._sync_generation()
-        self._data[key] = count
-        self._data.move_to_end(key)
-        while len(self._data) > RESULT_CACHE_SIZE:
-            self._data.popitem(last=False)
+    def put(self, key, result, version) -> None:
+        """`version` is the generation the caller DISPATCHED against: a
+        store rebuilt between dispatch and settle must not get a result of
+        the old store cached under the new generation."""
+        limit = self.limit()
+        if limit <= 0 or result is None or result.reseed_needed:
+            return
+        if result.vals is not None and result.vals.numel() > self.MAX_ENTRY_ROWS:
+            return
+        with self._lock:
+            self._sync_version()
+            if version != self._version:
+                return
+            self._data[key] = result
+            self._data.move_to_end(key)
+            while len(self._data) > limit:
+                self._data.popitem(last=False)
 
     def clear(self) -> None:
-        self._data.clear()
+        with self._lock:
+            self._data.clear()
+
+
+def result_cache_stats(db) -> Dict[str, int]:
+    """Hit, miss and invalidation counters of the store's live executor
+    cache (zeros when no executor exists yet)."""
+    out = {"hits": 0, "misses": 0, "invalidations": 0}
+    dev = getattr(db, "dev", None)
+    ex = getattr(dev, "_fused_executor", None) if dev is not None else None
+    if ex is not None:
+        for k in out:
+            out[k] += ex.results.stats[k]
+    return out
+
+
+def _grown(counts, caps) -> Tuple[int, ...]:
+    """Capacities after one round: each one its exact count's power of two
+    where the count overflowed it."""
+    return tuple(_pow2_at_least(int(n)) if int(n) > c else c for n, c in zip(counts, caps))
 
 
 class _ExecJob:
-    """One execute()'s mutable state: ordered term arguments, the planner's
-    program and the capacities, which grow between retry rounds."""
+    """One execution's mutable state — ordered term arguments, the
+    planner's program and the capacities, which grow between retry rounds
+    — split into two halves so that a batch can dispatch every job before
+    paying one host fetch for all of them: `dispatch()` enqueues a round,
+    `settle()` reads its fetched stats."""
 
-    def __init__(self, same_order, sigs, arrays, keys, fvals, term_caps,
+    def __init__(self, ex, count_only, same_order, sigs, arrays, keys, fvals, term_caps,
                  join_caps, index_joins, planned=None, multiway=0):
+        self.ex = ex
+        self.count_only = count_only
         self.same_order = same_order
         self.sigs = sigs
         self.arrays = arrays
@@ -624,22 +751,166 @@ class _ExecJob:
         #: leading positives fused into one multiway step (0 = binary chain)
         self.multiway = multiway
         self.rounds = 0
+        self.names = fold_join_meta(sigs)[2]
+        #: set by the settle that finishes the job; None at the ceiling
+        self.result: Optional[FusedResult] = None
 
     def plan_sig(self) -> FusedPlanSig:
         return FusedPlanSig(self.sigs, self.term_caps, self.join_caps, self.index_joins,
                             self.multiway)
 
+    def dispatch(self) -> Tuple[torch.Tensor, ...]:
+        """Enqueue one round at the current capacities.  Nothing here
+        waits for the card.  Returns the tensors the host needs:
+        (stats,) for a count, else (stats, vals, valid)."""
+        from das_tpu_torch.planner import PLANNER_COUNTS
 
-def _grown(counts, caps) -> Tuple[int, ...]:
-    """Capacities after one round: each one its exact count's power of two
-    where the count overflowed it."""
-    return tuple(_pow2_at_least(int(n)) if int(n) > c else c for n, c in zip(counts, caps))
+        self.rounds += 1
+        if self.planned is not None:
+            PLANNER_COUNTS["programs"] += 1
+        vals, valid, stats = run_conj(self.plan_sig(), self.arrays, self.keys, self.fvals)
+        return (stats,) if self.count_only else (stats, vals, valid)
+
+    def settle(self, host_out, dev_out) -> bool:
+        """Consume one round's fetched outputs (`host_out`, the host copies
+        of `dev_out`).  True = finished: `result` is set, or None when the
+        grown capacities would pass max_result_capacity (the staged path
+        then answers and owns the overflow policy).  False = the
+        capacities grew; dispatch again."""
+        from das_tpu_torch.planner import observe_settle
+        from das_tpu_torch.query.compiler import ROUTE_COUNTS
+
+        stats = host_out[0]
+        if self.count_only:
+            vals = valid = host_vals = host_valid = None
+        else:
+            host_vals, host_valid = host_out[1], host_out[2]
+            vals, valid = dev_out[1], dev_out[2]
+        ranges = stats[3:3 + len(self.sigs)]
+        jcounts = stats[3 + len(self.sigs):]
+        new_tc = _grown(ranges, self.term_caps)
+        new_jc = _grown(jcounts, self.join_caps)
+        if new_tc != self.term_caps or new_jc != self.join_caps:
+            if max(new_tc + new_jc, default=0) > self.ex.db.config.max_result_capacity:
+                return True
+            self.term_caps, self.join_caps = new_tc, new_jc
+            return False
+        self.ex._caps[self.sigs] = (self.term_caps, self.join_caps)
+        if self.planned is not None:
+            observe_settle(self.planned, [int(t) for t in jcounts], self.rounds)
+        count, reseed, pos_empty = int(stats[0]), bool(stats[1]), bool(stats[2])
+        n_positive = sum(1 for s in self.sigs if not s.negated)
+        self.result = FusedResult(
+            var_names=self.names, vals=vals, valid=valid, count=count,
+            # an empty result under a REORDERED fold could mask the
+            # reseed quirk of the reference order: the exact program
+            # redoes it; an empty POSITIVE TERM is always definitive
+            reseed_needed=reseed or (
+                count == 0 and n_positive > 1 and not pos_empty and not self.same_order
+            ),
+            host_vals=host_vals, host_valid=host_valid, multiway=bool(self.multiway),
+            stats=stats, rounds=self.rounds,
+        )
+        if self.multiway:
+            ROUTE_COUNTS["fused_multiway"] += 1
+        return True
+
+
+class _PendingMany:
+    """One dispatched-but-unsettled batch: cache-prefilled results, the
+    in-flight jobs with their index lists and cache keys, the tensors of
+    the enqueued round, and the generation the batch was dispatched
+    against (it guards the settle-time cache inserts)."""
+
+    __slots__ = ("results", "jobs", "outs", "version", "fetch_ms")
+
+    def __init__(self, results, jobs, outs, version):
+        self.results = results
+        self.jobs = jobs
+        self.outs = outs
+        self.version = version
+        #: wall ms of each settle round's host fetch; empty when no fetch
+        #: happened (all hits, all declined)
+        self.fetch_ms: List[float] = []
+
+
+def dispatch_pending(results_cache, exec_job, plans_lists, count_only, cache_only=False):
+    """First half of the serving pipeline: dedup identical queries of the
+    batch, answer cache hits, and enqueue the first round of every other
+    job — nothing waits for the card.  `exec_job(plans, count_only)`
+    returns a dispatchable job or None (a dispatch-time decline).  The
+    dedup comes BEFORE the cache lookup, so a duplicate shares its
+    original's job (or hit) and records no miss of its own.  With
+    cache_only nothing is dispatched: a miss stays a decline."""
+    results: List = [None] * len(plans_lists)
+    version = results_cache.version()
+    jobs = []
+    by_key: Dict[Tuple, List[int]] = {}
+    for i, plans in enumerate(plans_lists):
+        key = results_cache.key(plans, count_only)
+        dup = by_key.get(key)
+        if dup is not None:
+            dup.append(i)
+            continue
+        hit = results_cache.get(key)
+        if hit is not None:
+            results[i] = hit
+            continue
+        if cache_only:
+            continue
+        job = exec_job(plans, count_only)
+        if job is not None:
+            idxs = [i]
+            by_key[key] = idxs
+            jobs.append((idxs, job, key))
+    outs = [job.dispatch() for _, job, _ in jobs]
+    return _PendingMany(results, jobs, outs, version)
+
+
+def settle_pending_iter(results_cache, pending):
+    """Streaming second half: yields `(index, result)` as each answer
+    becomes final — cache hits first, then, per retry round, every job
+    whose verdict landed in that round's ONE host fetch (a ceiling yields
+    None).  Jobs whose capacities grew re-dispatch here, inside the
+    iterator.  Settle-time cache inserts are guarded by the dispatch-time
+    generation.  Indices declined at dispatch are never yielded (their
+    `pending.results` entry stays None).  A fetch is one attempt: there
+    is no fault-injection or retry policy around it yet."""
+    for i, hit in enumerate(pending.results):
+        if hit is not None:
+            yield i, hit
+    jobs, outs = pending.jobs, pending.outs
+    while jobs:
+        t0 = time.perf_counter()
+        fetched = fetch_many(outs)
+        pending.fetch_ms.append((time.perf_counter() - t0) * 1e3)
+        nxt = []
+        for (idxs, job, key), host, out in zip(jobs, fetched, outs):
+            if job.settle(host, out):
+                results_cache.put(key, job.result, pending.version)
+                for i in idxs:
+                    pending.results[i] = job.result
+                    yield i, job.result
+            else:
+                nxt.append((idxs, job, key))
+        jobs = nxt
+        outs = [job.dispatch() for _, job, _ in jobs]
+    pending.jobs, pending.outs = [], []
+
+
+def settle_pending(results_cache, pending) -> List:
+    """Drive a _PendingMany to the end (the list form of
+    settle_pending_iter).  Returns every entry's result (None = declined
+    at dispatch or at the ceiling)."""
+    for _ in settle_pending_iter(results_cache, pending):
+        pass
+    return pending.results
 
 
 class FusedExecutor:
     """Per-database executor: plan arguments, capacity seeds, the
-    overflow-corrected capacities learned per plan shape, and the count
-    result cache."""
+    overflow-corrected capacities learned per plan shape, and the
+    answered-result cache."""
 
     def __init__(self, db):
         self.db = db
@@ -732,7 +1003,7 @@ class FusedExecutor:
         )
         return _pow2_at_least(max(cfg.initial_result_capacity, term_cap_max))
 
-    def _exec_job(self, plans) -> Optional[_ExecJob]:
+    def _exec_job(self, plans, count_only: bool = False) -> Optional[_ExecJob]:
         """Order the plan, map its terms, seed the capacities.  None when a
         bucket is missing or the merged capacities exceed the ceiling.
 
@@ -783,57 +1054,113 @@ class FusedExecutor:
             _planner.record_planned(planned)
         else:
             _planner.PLANNER_COUNTS["greedy"] += 1
-        return _ExecJob(same_order, sigs, arrays, keys, fvals, term_caps, join_caps,
-                        index_joins, planned=planned, multiway=mw)
+        return _ExecJob(self, count_only, same_order, sigs, arrays, keys, fvals, term_caps,
+                        join_caps, index_joins, planned=planned, multiway=mw)
 
-    def execute(self, plans, count_only: bool = False) -> Optional[FusedResult]:
-        """Run the plan, one host fetch per round, doubling capacities on
-        overflow.  None when a bucket is missing or a capacity would pass
-        max_result_capacity (the staged path then answers and owns the
-        overflow policy)."""
-        from das_tpu_torch import planner as _planner
-        from das_tpu_torch.query import compiler as _compiler
-
-        job = self._exec_job(plans)
+    def execute(self, plans, count_only: bool = False,
+                use_cache: bool = False) -> Optional[FusedResult]:
+        """Run the plan: dispatch a round, fetch its outputs in one host
+        fetch, settle, and re-dispatch while the capacities grow.  None when
+        a bucket is missing or a capacity would pass max_result_capacity
+        (the staged path then answers).  With use_cache a result-cache hit
+        answers with no device work; off by default, so that the single
+        query path always runs the device."""
+        if use_cache:
+            key = self.results.key(plans, count_only)
+            hit = self.results.get(key)
+            if hit is not None:
+                return hit
+            version = self.results.version()
+        job = self._exec_job(plans, count_only)
         if job is None:
             return None
-        names = fold_join_meta(job.sigs)[2]
         while True:
-            job.rounds += 1
-            if job.planned is not None:
-                _planner.PLANNER_COUNTS["programs"] += 1
-            vals, valid, stats_dev = run_conj(job.plan_sig(), job.arrays, job.keys, job.fvals)
+            out = job.dispatch()
+            if job.settle(fetch(*out), out):
+                if use_cache:
+                    self.results.put(key, job.result, version)
+                return job.result
+
+    # -- the serving pipeline ------------------------------------------------
+
+    def dispatch_many(self, plans_lists, count_only: bool = False, cache_only: bool = False):
+        """First half of the serving pipeline: answer result-cache hits and
+        enqueue every other job's first round, with no host fetch.  Returns
+        the pending handle for settle_many / settle_many_iter.  With
+        cache_only no job is dispatched: misses stay declines."""
+        return dispatch_pending(self.results, self._exec_job, plans_lists, count_only,
+                                cache_only=cache_only)
+
+    def settle_many(self, pending) -> List[Optional[FusedResult]]:
+        """Second half: one host fetch per retry round for all in-flight
+        jobs, each job's verdict, re-dispatch of the jobs that grew."""
+        return settle_pending(self.results, pending)
+
+    def settle_many_iter(self, pending):
+        """Streaming second half: (index, FusedResult) as each verdict
+        lands (see settle_pending_iter)."""
+        return settle_pending_iter(self.results, pending)
+
+    def execute_many(self, plans_lists, count_only: bool = False) -> List[Optional[FusedResult]]:
+        """Every query of the batch dispatched, then ONE host fetch per
+        retry round for all of them; per query the same capacity retry,
+        verdicts and learned capacities as execute()."""
+        return self.settle_many(self.dispatch_many(plans_lists, count_only))
+
+    def execute_exact(self, plans, count_only: bool = False) -> Optional[FusedResult]:
+        """The plan in REFERENCE order (no reordering: the fold is
+        order-sensitive) on the exact program (`run_exact`), whose reseed
+        automaton answers the reseed quirk itself; one host fetch per
+        retry round.  The host projects the full-K table onto the active
+        state's columns.  None when a bucket is missing or the capacities
+        pass EXACT_TERM_CAP_LIMIT or max_result_capacity (the staged path
+        then answers)."""
+        mapped = self._map_terms(plans)
+        if mapped is None:
+            return None
+        sigs, arrays, keys, fvals = mapped
+        cfg = self.db.config
+        term_caps = tuple(_pow2_at_least(self._estimate(p)) for p in plans)
+        P = sum(1 for s in sigs if not s.negated)
+        chain_caps = tuple([self._join_cap_seed(plans, term_caps)] * len(_chain_order(P)))
+        learned = self._learned_caps(self._exact_caps, sigs, (len(term_caps), len(chain_caps)))
+        if learned is not None:
+            term_caps = tuple(max(a, b) for a, b in zip(term_caps, learned[0]))
+            chain_caps = tuple(max(a, b) for a, b in zip(chain_caps, learned[1]))
+        # every term is materialized (a suffix chain has no index-join
+        # form): past EXACT_TERM_CAP_LIMIT the staged path answers
+        if max(term_caps) > min(cfg.max_result_capacity, EXACT_TERM_CAP_LIMIT):
+            return None
+        if max(chain_caps, default=0) > cfg.max_result_capacity:
+            return None
+        rounds = 0
+        while True:
+            rounds += 1
+            sig = FusedExactSig(sigs, term_caps, chain_caps)
             if count_only:
-                (stats,) = fetch(stats_dev)
-                host_vals = host_valid = None
+                (stats,) = fetch(run_exact(sig, arrays, keys, fvals, count_only=True))
+                vals = valid = host_vals = host_valid = None
             else:
+                vals, valid, stats_dev = run_exact(sig, arrays, keys, fvals)
                 stats, host_vals, host_valid = fetch(stats_dev, vals, valid)
-            ranges = stats[3:3 + len(job.sigs)]
-            jcounts = stats[3 + len(job.sigs):]
-            new_tc = _grown(ranges, job.term_caps)
-            new_jc = _grown(jcounts, job.join_caps)
-            if new_tc == job.term_caps and new_jc == job.join_caps:
+            new_tc = _grown(stats[3:3 + len(sigs)], term_caps)
+            new_cc = _grown(stats[3 + len(sigs):], chain_caps)
+            if new_tc == term_caps and new_cc == chain_caps:
                 break
-            if max(new_tc + new_jc, default=0) > self.db.config.max_result_capacity:
+            if max(new_tc + new_cc, default=0) > cfg.max_result_capacity:
                 return None
-            job.term_caps, job.join_caps = new_tc, new_jc
-        self._caps[job.sigs] = (job.term_caps, job.join_caps)
-        if job.planned is not None:
-            _planner.observe_settle(job.planned, [int(t) for t in jcounts], job.rounds)
-        if job.multiway:
-            _compiler.ROUTE_COUNTS["fused_multiway"] += 1
-        count, reseed, pos_empty = int(stats[0]), bool(stats[1]), bool(stats[2])
-        n_positive = sum(1 for s in job.sigs if not s.negated)
+            term_caps, chain_caps = new_tc, new_cc
+        self._exact_caps[sigs] = (term_caps, chain_caps)
+        _all, names_per_state, cols_per_state, _cap = exact_layout(sig)
+        s_act = int(stats[1])
+        cols = list(cols_per_state[s_act])
+        if vals is not None and cols != list(range(vals.shape[1])):
+            vals = vals[:, cols]
+            host_vals = host_vals[:, cols]
         return FusedResult(
-            var_names=names, vals=vals, valid=valid, count=count,
-            # an empty result under a REORDERED fold could mask the
-            # reseed quirk of the reference order: the staged path redoes
-            # it; an empty POSITIVE TERM is always definitive
-            reseed_needed=reseed or (
-                count == 0 and n_positive > 1 and not pos_empty and not job.same_order
-            ),
-            stats=stats, rounds=job.rounds, host_vals=host_vals, host_valid=host_valid,
-            multiway=bool(job.multiway),
+            var_names=names_per_state[s_act], vals=vals, valid=valid, count=int(stats[0]),
+            reseed_needed=False, host_vals=host_vals, host_valid=host_valid,
+            stats=stats, rounds=rounds,
         )
 
     # -- batched counting ------------------------------------------------------
@@ -930,16 +1257,19 @@ class FusedExecutor:
         prepared = []   # (index, sigs, arrays, keys, fvals, ests, same_order)
         out: List[Optional[int]] = [None] * len(plans_list)
         groups: Dict[Tuple, List[int]] = {}
+        # answered counts live in the result cache under count_only=True;
+        # the generation read here guards the inserts
         cache_keys: Dict[int, Tuple] = {}
+        cache_version = self.results.version()
         for idx, plans in enumerate(plans_list):
             n = trivial_plan_count(self.db, plans)
             if n is not None:
                 out[idx] = n
                 continue
-            cache_keys[idx] = self.results.key(plans)
+            cache_keys[idx] = self.results.key(plans, True)
             hit = self.results.get(cache_keys[idx])
             if hit is not None:
-                out[idx] = hit
+                out[idx] = hit.count
                 continue
             ordered = self._count_order(plans)
             same_order = same_positive_order(ordered, plans)
@@ -954,7 +1284,8 @@ class FusedExecutor:
         def answer(idx: int, n: int) -> None:
             out[idx] = n
             if idx in cache_keys:
-                self.results.put(cache_keys[idx], n)
+                self.results.put(cache_keys[idx], FusedResult((), None, None, n, False),
+                                 cache_version)
 
         cfg = self.db.config
         on_card = self.db.device.type == "cuda"
@@ -1033,7 +1364,7 @@ class FusedExecutor:
                 continue
 
             def run_lane(tc, cc, kr, fr, _s=sigs, _a=members[0][1]):
-                return run_exact(FusedExactSig(_s, tc, cc), _a, kr, fr)
+                return run_exact(FusedExactSig(_s, tc, cc), _a, kr, fr, count_only=True)
 
             self.batch_counts["exact_groups"] += 1
             stats, term_caps, chain_caps = self._run_batch_group(

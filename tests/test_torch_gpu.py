@@ -367,3 +367,88 @@ def test_probe_and_join_match_plain_on_card():
     assert join(big_left, (right[0][:0], right[1][:0]), one_pair, (1,), 64, "global") == (0, 1)
     join(left, right, one_pair, (1,), 20000, "global")     # cap past the block regime's
     torch.cuda.synchronize()
+
+
+#: bench.py SMALL
+SMALL = dict(n_genes=300, n_processes=30, members_per_gene=5, n_interactions=300,
+             n_evaluations=0)
+
+
+def _bio_queries(names):
+    """Grounded and Not queries, a duplicate, the triangle and two reseed
+    shapes (two grounded Member terms, then a whole-type Interacts term)."""
+    from das_tpu_torch.query.ast import And, Link, Node, Not, Variable
+
+    def grounded(g, negate=False):
+        third = Link("Interacts", [Node("Gene", g), Variable("V2")], True)
+        return And([Link("Member", [Node("Gene", g), Variable("V3")], True),
+                    Link("Member", [Variable("V2"), Variable("V3")], True),
+                    Not(third) if negate else third])
+
+    def reseed(g1, g2):
+        return And([Link("Member", [Node("Gene", g1), Variable("V3")], True),
+                    Link("Member", [Node("Gene", g2), Variable("V3")], True),
+                    Link("Interacts", [Variable("V1"), Variable("V2")], True)])
+
+    triangle = And([Link("Member", [Variable("V1"), Variable("V3")], True),
+                    Link("Member", [Variable("V2"), Variable("V3")], True),
+                    Link("Interacts", [Variable("V1"), Variable("V2")], True)])
+    batch = ([grounded(g) for g in names[:8]] + [grounded(g, True) for g in names[:8]]
+             + [grounded(names[0]), triangle])
+    return batch, [reseed(names[10 + i], names[20 + i]) for i in range(4)]
+
+
+@pytest.mark.gpu
+def test_query_many_on_card_equals_query(monkeypatch):
+    """query_many on the card: the strings query() gives, and one host
+    fetch per retry round of the batch (not one per query)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels only run on the GPU")
+    from das_tpu_torch.api.atomspace import DistributedAtomSpace
+    from das_tpu_torch.models.bio import build_bio_atomspace
+    from das_tpu_torch.query import fused
+
+    data, genes, _ = build_bio_atomspace(seed=5, **SMALL)
+    names = [data.nodes[h].name for h in genes]
+    das = DistributedAtomSpace(backend="tensor", data=data, device="cuda")
+    batch, _reseeds = _bio_queries(names)
+    rounds = {}
+    dispatch = fused._ExecJob.dispatch
+
+    def recording(job):
+        out = dispatch(job)
+        rounds[job] = job.rounds
+        return out
+
+    monkeypatch.setattr(fused._ExecJob, "dispatch", recording)
+    f0 = fused.FETCH_COUNTS["n"]
+    got = das.query_many(batch)
+    assert fused.FETCH_COUNTS["n"] - f0 == max(rounds.values()) < len(batch)
+    assert got == [das.query(q) for q in batch]
+    assert got[0] == got[16] and any(got[:8])
+
+
+@pytest.mark.gpu
+def test_execute_exact_on_card_equals_cpu():
+    """The exact reference-order program on the card against the same
+    program on the CPU (the plain versions): names, count, stats, rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels only run on the GPU")
+    from das_tpu_torch.models.bio import build_bio_atomspace
+    from das_tpu_torch.query import compiler, fused
+    from das_tpu_torch.storage.tensor_db import TensorDB
+
+    data, genes, _ = build_bio_atomspace(seed=5, **SMALL)
+    names = [data.nodes[h].name for h in genes]
+    card, cpu = TensorDB(data, device="cuda"), TensorDB(data, device="cpu")
+    _batch, reseeds = _bio_queries(names)
+    re_seeded = 0
+    for q in reseeds:
+        want = fused.get_executor(cpu).execute_exact(compiler.plan_query(cpu, q))
+        got = fused.get_executor(card).execute_exact(compiler.plan_query(card, q))
+        assert (got.var_names, got.count) == (want.var_names, want.count)
+        assert got.stats.tolist() == want.stats.tolist()
+        rows = [{tuple(r) for r in res.host_vals[res.host_valid].tolist()} for res in (got, want)]
+        assert rows[0] == rows[1] and len(rows[0]) == got.count
+        re_seeded += int(got.stats[1]) > 0
+    assert re_seeded >= 1
