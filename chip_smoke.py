@@ -79,7 +79,34 @@ Phases, one JSON line each:
                Member(g2, $V3) and Interacts(g3, $V2), half of whose pairs
                share no process, so the exact second pass must run; every
                count against numpy, three non-zero ones and a re-seeded
-               one against count_matches.
+               one against count_matches;
+  7. api     — explain(q) and explain(q, execute=True) of one grounded, one
+               Not, one grounded-star and one fan-out-star query (planned,
+               the planner's order, a multiway step for the stars, the
+               executed count equal to numpy's, no retry round once the
+               capacities are warm), and the read surface: get_links
+               ("Member", [gene, "*"]) of 8 genes against numpy in handle
+               space, get_node / get_node_name / get_node_type /
+               get_link_type / get_link_targets against the records;
+  8. commit  — last, since it changes the store: three transactions of 256
+               new genes (4 Member links into existing processes and 2
+               Interacts links with an existing gene each, 1,792 atoms)
+               and one of 512 links among existing atoms, through
+               open_transaction / commit_transaction.  Each commit must be
+               incremental (_delta_total up by its atoms, delta_version up
+               by 1, the arity-2 capacity and the store's bytes unchanged);
+               wall ms per commit and the device merge's ms by CUDA events.
+               After each, 32 grounded and 32 Not queries on new and touched
+               genes and a grounded star (multiway) against numpy: the
+               pre-commit HostKB plus the pairs the phase wrote, in handle
+               space.  The serving batch across the first commit (one
+               invalidation, no hits, the new answers), a batch dispatched
+               before the fourth commit and settled after it, the merged
+               posting columns' structure, one merge again on CPU copies
+               (bit-equal); on SMALL, commits until the arity-2 bucket
+               grows, a new 3-ary link type and a commit past a small
+               delta_merge_threshold (a rebuild), each against the host
+               algebra.
 
 Then a line {"kernels": [...]} with each kernel's route, source, the TPU
 kernel it replaces, launches on the main path, error against the plain
@@ -1359,6 +1386,506 @@ def phase_count_batch(args, das, data, genes, host, width=256):
                     "exact_groups": exact_groups, "launches": check_launches}})
 
 
+# ---- phase 7 ---------------------------------------------------------------------
+
+
+def phase_api(args, das, data, genes, host, families, smi):
+    """explain and the read surface through the public API on the slice's
+    store.  Counters zeroed just before, read just after."""
+    import torch
+
+    from das_tpu_torch import planner
+    from das_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from das_tpu_torch.query.fused import FETCH_COUNTS
+
+    t_phase = time.perf_counter()
+    gene_names = [data.nodes[h].name for h in genes]
+    g = pick_genes(host, gene_names, args.seed, n=1, n_nonempty=1)[0]
+    star, fan = families["grounded_star"][0], families["fanout_star"][0]
+    cases = {
+        "grounded": (grounded_query(g), len(host.grounded(_gene_row(das, g), False))),
+        "not": (grounded_query(g, True), len(host.grounded(_gene_row(das, g), True))),
+        "grounded_star": (star[0], len(star[2])),
+        "fanout_star": (fan[0], len(fan[2])),
+    }
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    e0, f0 = planner.PLANNER_COUNTS["explain"], FETCH_COUNTS["n"]
+    lines = {}
+    for name, (q, want) in cases.items():
+        t0 = time.perf_counter()
+        plan = das.explain(q)
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        if not plan["planned"] or len(plan["order"]) != len(q.terms):
+            raise AssertionError(f"explain({name}) gave no planned order: {plan}")
+        if name.endswith("star") and not plan["multiway"]:
+            raise AssertionError(f"explain({name}) planned no multiway step")
+        cold = das.explain(q, execute=True)
+        t0 = time.perf_counter()
+        warm = das.explain(q, execute=True)
+        execute_ms = (time.perf_counter() - t0) * 1e3
+        for run in (cold, warm):
+            if run["actual"] is None or run["actual"]["count"] != want:
+                raise AssertionError(f"explain({name}, execute=True) counted "
+                                     f"{run['actual']}, numpy {want}")
+        if warm["actual"]["retry_rounds"] != 0:
+            raise AssertionError(f"explain({name}) with warm capacities retried")
+        lines[name] = {
+            "route": plan["route"], "method": plan["method"], "multiway": plan["multiway"],
+            "order": [t["vars"] for t in plan["order"]], "est_join_rows": plan["est_join_rows"],
+            "count": warm["actual"]["count"], "numpy_count": want,
+            "join_rows": warm["actual"]["join_rows"],
+            "cold_retry_rounds": cold["actual"]["retry_rounds"], "explain_ms": plan_ms,
+            "execute_ms": execute_ms,
+        }
+    torch.cuda.synchronize()
+    launches = dict(LAUNCH_COUNTS)
+    explained = planner.PLANNER_COUNTS["explain"] - e0
+    fetches = FETCH_COUNTS["n"] - f0
+    if explained != 3 * len(cases):
+        raise AssertionError(f"{explained} explain plans for {3 * len(cases)} calls")
+
+    # -- the read surface, against the numpy view in handle space ---------------
+    reads = pick_genes(host, gene_names, args.seed + 9, n=8, n_nonempty=4)
+    hexes, rows = host.fin.hex_of_row, host.fin.row_of_hex
+    times = []
+    n_links = 0
+    for name in reads:
+        gh = das.get_node("Gene", name)
+        if (gh != das.db.get_node_handle("Gene", name) or das.get_node_name(gh) != name
+                or das.get_node_type(gh) != "Gene"):
+            raise AssertionError(f"get_node / get_node_name / get_node_type disagree on {name}")
+        t0 = time.perf_counter()
+        links = das.get_links("Member", targets=[gh, "*"])
+        times.append((time.perf_counter() - t0) * 1e3)
+        want = {hexes[p] for p in host.procs(rows[gh]).tolist()}
+        got = []
+        for link in links:
+            targets = das.get_link_targets(link)
+            if das.get_link_type(link) != "Member" or targets[0] != gh:
+                raise AssertionError(f"get_link_type / get_link_targets disagree on {link}")
+            got.append(targets[1])
+        if len(got) != len(want) or set(got) != want:
+            raise AssertionError(f"get_links(Member, [{name}, *]) differs from numpy")
+        n_links += len(links)
+    emit({"phase": "api", "card": smi, "explain": lines, "explain_plans": explained,
+          "host_fetches": fetches, "launches": launches,
+          "read": {"genes": len(reads), "links": n_links, "get_links_p50_ms": _p50(times),
+                   "get_links_ms": times},
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
+# ---- phase 8 ---------------------------------------------------------------------
+
+
+class CommitRef:
+    """The numpy reference of the commit phase, in handle space: the
+    pre-commit HostKB plus the Member and Interacts pairs the phase itself
+    wrote.  It never reads the store's merged tables."""
+
+    def __init__(self, host):
+        self.host = host
+        self.hexes = host.fin.hex_of_row
+        self.rows = host.fin.row_of_hex
+        self.n_base = len(self.hexes)       # rows the HostKB arrays cover
+        self.procs_x, self.members_x, self.partners_x = {}, {}, {}
+
+    def _base(self, fn, h):
+        r = self.rows.get(h)
+        if r is None or r >= self.n_base:
+            return []
+        return [self.hexes[x] for x in fn(r).tolist()]
+
+    def add_member(self, g, p):
+        self.procs_x.setdefault(g, []).append(p)
+        self.members_x.setdefault(p, []).append(g)
+
+    def add_interacts(self, a, b):
+        self.partners_x.setdefault(a, []).append(b)
+
+    def record(self, db, links):
+        """Add a commit's Member and Interacts links, given by name."""
+        for link_type, a, b in links:
+            ha = db.get_node_handle("Gene", a)
+            if link_type == "Member":
+                self.add_member(ha, db.get_node_handle("BiologicalProcess", b))
+            else:
+                self.add_interacts(ha, db.get_node_handle("Gene", b))
+
+    def procs(self, g):
+        return self._base(self.host.procs, g) + self.procs_x.get(g, [])
+
+    def members(self, p):
+        return self._base(self.host.members, p) + self.members_x.get(p, [])
+
+    def partners(self, g):
+        return self._base(self.host.partners, g) + self.partners_x.get(g, [])
+
+    def grounded(self, g, negate):
+        """{frozenset((variable, handle))} of grounded_query(g, negate)."""
+        partners = set(self.partners(g))
+        return {frozenset({("V2", v2), ("V3", p)}) for p in self.procs(g)
+                for v2 in self.members(p) if (v2 in partners) != negate}
+
+    def grounded_star(self, g, p1, p2):
+        both = set(self.members(p1)) & set(self.members(p2))
+        return {frozenset({("V1", v)}) for v in set(self.partners(g)) & both}
+
+
+def parse_handles(s):
+    """{frozenset((variable, handle))} of an answer string."""
+    return {frozenset(ast.literal_eval(d).items()) for d in re.findall(r"\{[^{}]*\}", s)}
+
+
+def answer_handles(das, query):
+    matched, answer = das.query_answer(query)
+    got = {frozenset(a.mapping.items()) for a in answer.assignments}
+    return got if matched else set()
+
+
+def transaction(das, nodes, links, types=()):
+    """A Transaction of `links` [(type, target names...)]: new link `types`
+    declared, then every node it names declared with its type ({name:
+    type}), since `build_bio_atomspace` adds its nodes without declarations; a
+    declaration adds no atom."""
+    tx = das.open_transaction()
+    for t in types:
+        tx.add(f"(: {t} Type)")
+    for n, t in nodes.items():
+        tx.add(f'(: "{n}" {t})')
+    for link_type, *names in links:
+        tx.add(f"({link_type} " + " ".join(f'"{n}"' for n in names) + ")")
+    return tx
+
+
+def gene_commit(rng, ref, name_of, prefix, n_new, existing, procs, partners_first=()):
+    """(nodes, links, new gene names, partner handles) of a commit of n_new
+    new genes, each a Member of 4 of the existing `procs` and Interacts with
+    one of the `existing` genes in both orientations: 7 atoms a gene.  The first process
+    of each new gene is one of its partner's, so its grounded answer is
+    non-empty; the partners of the first new genes are `partners_first`."""
+    nodes, links, new, partners = {}, [], [], []
+    for i in range(n_new):
+        n = f"{prefix}{i:04d}"
+        x = partners_first[i] if i < len(partners_first) else rng.choice(existing)
+        mine = [ref.procs(x)[0]]
+        while len(mine) < 4:
+            p = rng.choice(procs)
+            if p not in mine:
+                mine.append(p)
+        nodes[n] = "Gene"
+        nodes[name_of[x]] = "Gene"
+        for p in mine:
+            nodes[name_of[p]] = "BiologicalProcess"
+            links.append(("Member", n, name_of[p]))
+        links += [("Interacts", n, name_of[x]), ("Interacts", name_of[x], n)]
+        new.append(n)
+        partners.append(x)
+    return nodes, links, new, partners
+
+
+def check_merged_bucket(b):
+    """Structural checks of every sorted key column of a merged bucket:
+    keys non-decreasing over [:size] and the dtype's max after it, perm a
+    permutation of the rows, each key the key of the row perm points to."""
+    import torch
+
+    n = b.size
+    tid = b.type_id.long()
+    cols = [("key_type", b.key_type, b.order_by_type, lambda r: b.type_id[r]),
+            ("key_ctype", b.key_ctype, b.order_by_ctype, lambda r: b.ctype[r])]
+    for p in range(b.arity):
+        cols += [
+            (f"key_type_pos[{p}]", b.key_type_pos[p], b.order_by_type_pos[p],
+             lambda r, p=p: (tid[r] << 32) | b.targets[r, p].long()),
+            (f"key_pos[{p}]", b.key_pos[p], b.order_by_pos[p], lambda r, p=p: b.targets[r, p]),
+            (f"key_type_spos[{p}]", b.key_type_spos[p], b.order_by_type_spos[p],
+             lambda r, p=p: (tid[r] << 32) | b.targets_sorted[r, p].long()),
+        ]
+    for name, keys, perm, derive in cols:
+        k = keys[:n]
+        if n > 1 and not bool((k[1:] >= k[:-1]).all()):
+            raise AssertionError(f"{name}: keys decrease")
+        if not bool((keys[n:] == torch.iinfo(keys.dtype).max).all()):
+            raise AssertionError(f"{name}: a slot after size is not the dtype's max")
+        r = perm[:n].long()
+        if not torch.equal(torch.sort(r).values, torch.arange(n, device=r.device)):
+            raise AssertionError(f"{name}: perm is not a permutation of the rows")
+        if not torch.equal(derive(r).to(keys.dtype), k):
+            raise AssertionError(f"{name}: a key is not the key of its row")
+    return len(cols)
+
+
+def phase_commit(args, das, data, genes, host, smi, upload_s, slice_p50):
+    """Incremental commits through open_transaction / commit_transaction on
+    the slice's store (last: it changes the store), then growth, a new
+    arity and a threshold rebuild on SMALL.  Counters zeroed just before,
+    read just after."""
+    import torch
+
+    from das_tpu_torch.api.atomspace import DistributedAtomSpace
+    from das_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from das_tpu_torch.query import compiler
+    from das_tpu_torch.query.fused import result_cache_stats
+    from das_tpu_torch.storage import tensor_db
+
+    t_phase = time.perf_counter()
+    rng = random.Random(args.seed + 7)
+    db = das.db
+    ref = CommitRef(host)
+    name_of = {h: data.nodes[h].name for h in genes}
+    procs = sorted({ref.hexes[p] for p in host.member[:, 1].tolist()})
+    name_of.update((p, data.nodes[p].name) for p in procs)
+    with_procs = sorted({ref.hexes[g] for g in host.member[:, 0].tolist()})
+    gene_names = [data.nodes[h].name for h in genes]
+    chosen = pick_genes(host, gene_names, args.seed)
+    chosen_h = [db.get_node_handle("Gene", g) for g in chosen]
+    batch = [grounded_query(g) for g in chosen] + [grounded_query(g, True) for g in chosen]
+    dup = list(range(4)) + list(range(32, 36))
+    batch += [batch[i] for i in dup]
+    keys = [(h, False) for h in chosen_h] + [(h, True) for h in chosen_h]
+    keys += [keys[i] for i in dup]
+
+    # the device merge, timed by CUDA events around each arity's staging
+    merges = []
+    stage = db._stage_delta_merge
+
+    def timed_stage(delta):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = stage(delta)
+        end.record()
+        merges[-1].append((start, end))
+        return out
+
+    db._stage_delta_merge = timed_stage
+    cap2, nbytes = db.dev.buckets[2].capacity, db.dev.nbytes()
+    commit_ms, merge_ms, per_commit = [], [], []
+    times = {"grounded": [], "not": []}
+    checked = 0
+
+    def commit(tx, atoms):
+        total, version = db._delta_total, db.delta_version
+        merges.append([])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        das.commit_transaction(tx)
+        torch.cuda.synchronize()
+        commit_ms.append((time.perf_counter() - t0) * 1e3)
+        merge_ms.append(sum(s.elapsed_time(e) for s, e in merges[-1]))
+        if db._delta_total != total + atoms or db.delta_version != version + 1:
+            raise AssertionError(f"commit of {atoms} atoms: _delta_total {total} -> "
+                                 f"{db._delta_total}, delta_version {version} -> "
+                                 f"{db.delta_version} (a rebuild ran?)")
+        if das.db is not db or db.dev.buckets[2].capacity != cap2 or db.dev.nbytes() != nbytes:
+            raise AssertionError("a commit grew or replaced the store")
+        per_commit.append({"atoms": atoms, "commit_ms": commit_ms[-1],
+                           "merge_ms": merge_ms[-1]})
+
+    def check_answers(gene_hexes):
+        nonlocal checked
+        for negate, kind in ((False, "grounded"), (True, "not")):
+            for g in gene_hexes:
+                q = grounded_query(name_of_any(g), negate)
+                t0 = time.perf_counter()
+                got = answer_handles(das, q)
+                times[kind].append((time.perf_counter() - t0) * 1e3)
+                if got != ref.grounded(g, negate):
+                    raise AssertionError(f"post-commit {kind} answer of {name_of_any(g)} "
+                                         f"differs from numpy")
+                checked += 1
+
+    def name_of_any(h):
+        return name_of.get(h) or das.data.nodes[h].name
+
+    def check_star(g, x):
+        p1, p2 = sorted(ref.procs(x))[:2]
+        q = grounded_star_query(name_of_any(g), name_of[p1], name_of[p2])
+        r0 = compiler.ROUTE_COUNTS["fused_multiway"]
+        got = answer_handles(das, q)
+        routed = compiler.ROUTE_COUNTS["fused_multiway"] - r0
+        if not routed:
+            cfg = db.config
+            mode, cfg.use_multiway = cfg.use_multiway, "on"
+            try:
+                got = answer_handles(das, q)
+            finally:
+                cfg.use_multiway = mode
+            if compiler.ROUTE_COUNTS["fused_multiway"] == r0:
+                raise AssertionError("the post-commit star took no multiway step")
+        if not got or got != ref.grounded_star(g, p1, p2):
+            raise AssertionError("the post-commit grounded star differs from numpy")
+        return bool(routed)
+
+    torch.cuda.synchronize()
+    compiler.reset_route_counts()
+    reset_launch_counts()
+    # the serving batch, answered and cached on the pre-commit store
+    before = das.query_many(batch)
+    c0 = result_cache_stats(db)
+    stars_auto = 0
+    cache = None
+    for k in range(3):
+        nodes, links, new, partners = gene_commit(
+            rng, ref, name_of, f"GENE:commit{k}_", 256, with_procs, procs,
+            partners_first=chosen_h[:16] if k == 0 else ())
+        commit(transaction(das, nodes, links), 256 + len(links))
+        ref.record(db, links)
+        new_h = [db.get_node_handle("Gene", n) for n in new]
+        name_of.update(zip(new_h, new))
+        if k == 0:
+            # the serving batch again: one invalidation, no hits, new answers
+            after = das.query_many(batch)
+            c1 = result_cache_stats(db)
+            cache = {key: c1[key] - c0[key] for key in c0}
+            if cache["invalidations"] != 1 or cache["hits"]:
+                raise AssertionError(f"the cache across a commit moved by {cache}")
+            changed = 0
+            for s, s0, (g, negate) in zip(after, before, keys):
+                if parse_handles(s) != ref.grounded(g, negate):
+                    raise AssertionError("a post-commit serving answer differs from numpy")
+                changed += s != s0
+            if changed < 16:
+                raise AssertionError(f"the first commit changed {changed} serving answers")
+            cache["changed_answers"] = changed
+        check_answers(new_h[:16] + partners[:16])
+        stars_auto += check_star(new_h[0], partners[0])
+
+    # the fourth commit: 512 links among existing genes and processes; a
+    # batch dispatched before it settles on the committed store
+    touched, xs = chosen_h[16:32], []
+    links = []
+    nodes = {}
+    for g in touched:
+        partners = set(ref.partners(g))
+        p0 = ref.procs(g)[0]
+        x = next(v for v in ref.members(p0) if v != g and v not in partners)
+        xs.append(x)
+        links += [("Interacts", name_of_any(g), name_of_any(x)),
+                  ("Interacts", name_of_any(x), name_of_any(g))]
+        nodes[name_of_any(g)] = nodes[name_of_any(x)] = "Gene"
+    new_members = set()
+    while len(links) < 512:
+        g, p = rng.choice(with_procs), rng.choice(procs)
+        if p in ref.procs(g) or (g, p) in new_members:
+            continue
+        new_members.add((g, p))
+        links.append(("Member", name_of_any(g), name_of[p]))
+        nodes[name_of_any(g)] = "Gene"
+        nodes[name_of[p]] = "BiologicalProcess"
+    in_flight = [grounded_query(name_of_any(g)) for g in touched]
+    pre = [ref.grounded(g, False) for g in touched]
+    job = das.query_many_dispatch(in_flight)
+    captured = []
+    merge_padded = tensor_db._merge_padded
+
+    def capture(*a):
+        # references only: the inputs are never written, so they are copied
+        # to the host after the commit, outside the timed staging
+        out = merge_padded(*a)
+        if not captured:
+            captured.append((a, out))
+        return out
+
+    tensor_db._merge_padded = capture
+    try:
+        commit(transaction(das, nodes, links), len(links))
+    finally:
+        tensor_db._merge_padded = merge_padded
+    ref.record(db, links)
+    settled = job.settle()
+    for s, g, p in zip(settled, touched, pre):
+        want = ref.grounded(g, False)
+        if parse_handles(s) != want or want == p:
+            raise AssertionError("the batch dispatched before the commit missed it")
+    check_answers(touched + xs)
+    stars_auto += check_star(touched[0], xs[0])
+    del db._stage_delta_merge
+    # the merged indexes: structure, and one merge again on CPU copies
+    n_cols = check_merged_bucket(db.dev.buckets[2])
+    (ins, outs), = captured
+    again = merge_padded(*(t.cpu() for t in ins))
+    if not all(torch.equal(a, b.cpu()) for a, b in zip(again, outs)):
+        raise AssertionError("the card's merge differs from the same merge on the CPU")
+
+    # -- SMALL: capacity growth, a new arity, a threshold rebuild ------------------
+    sdata, sgenes = build_kb(SMALL, args.seed)
+    shost = HostKB(sdata, sgenes)
+    sdas = DistributedAtomSpace(backend="tensor", data=sdata, device=DEVICE)
+    smem = DistributedAtomSpace(backend="memory", data=sdata)
+    sref = CommitRef(shost)
+    sprocs = sorted({sref.hexes[p] for p in shost.member[:, 1].tolist()})
+    sname = {h: sdata.nodes[h].name for h in sref.hexes[:len(sdata.nodes)]}
+    sexisting = sorted({sref.hexes[g] for g in shost.member[:, 0].tolist()})
+    sdb = sdas.db
+
+    def small_commit(prefix, n_new):
+        nodes, links, new, _partners = gene_commit(rng, sref, sname, prefix, n_new, sexisting,
+                                                   sprocs)
+        sdas.commit_transaction(transaction(sdas, nodes, links))
+        sref.record(sdb, links)
+        for n in new[:4]:
+            for negate in (False, True):
+                q = grounded_query(n, negate)
+                if answer_set(sdas, q) != answer_set(smem, q):
+                    raise AssertionError(f"SMALL {n} (not={negate}) differs from the host algebra")
+        return len(new) + len(links)
+
+    scap0 = sdb.dev.buckets[2].capacity
+    grow_commits = 0
+    while sdb.dev.buckets[2].capacity == scap0:
+        total = sdb._delta_total
+        atoms = small_commit(f"GENE:small{grow_commits}_", 40)
+        grow_commits += 1
+        if sdb._delta_total != total + atoms or grow_commits > 4:
+            raise AssertionError("SMALL: the growth commits rebuilt or never grew")
+    grown = {"commits": grow_commits, "capacity": [scap0, sdb.dev.buckets[2].capacity],
+             "size": sdb.dev.buckets[2].size}
+    # a new 3-ary link type: the delta becomes the base of its arity
+    gnames = [sname[h] for h in sexisting[:17]]
+    pname = sname[sprocs[0]]
+    sdas.commit_transaction(transaction(
+        sdas, {**{n: "Gene" for n in gnames}, pname: "BiologicalProcess"},
+        [("Triple", gnames[0], gnames[i], pname) for i in range(1, 17)], types=("Triple",)))
+    from das_tpu_torch.query.ast import Link, Node, Variable
+
+    tq = Link("Triple", [Node("Gene", gnames[0]), Variable("V1"), Variable("V2")], True)
+    if (3 not in sdb._base_buckets or sdb.dev.buckets[3].size != 16
+            or len(answer_set(sdas, tq)[1]) != 16 or answer_set(sdas, tq) != answer_set(smem, tq)):
+        raise AssertionError("SMALL: the new 3-ary link type is not its arity's base")
+    # past a small threshold: a full rebuild
+    sdb.config.delta_merge_threshold = sdb._delta_total + 8
+    version = sdb.delta_version
+    small_commit("GENE:rebuild_", 8)
+    if sdas.db._delta_total != 0 or sdas.db.delta_version != version + 1:
+        raise AssertionError("SMALL: the commit past the threshold did not rebuild")
+    torch.cuda.synchronize()
+    launches = dict(LAUNCH_COUNTS)
+    routes = dict(compiler.ROUTE_COUNTS)
+    idle = [k for k in ("probe", "index_join", "join_tables", "anti_join") if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on the commit path: {idle}")
+    emit({
+        "phase": "commit", "card": smi,
+        "commits": per_commit,
+        "commit_ms_p50_of_3": _p50(commit_ms[:3]), "merge_ms_p50_of_3": _p50(merge_ms[:3]),
+        "kb_finalize_upload_s": upload_s,
+        "delta_total": db._delta_total, "delta_version": db.delta_version,
+        "arity2": {"size": db.dev.buckets[2].size, "capacity": cap2},
+        "store_tensor_bytes": nbytes,
+        "p50_ms": {k: _p50(v) for k, v in times.items()}, "slice_p50_ms": slice_p50,
+        "answers_checked": checked, "stars_multiway_auto": stars_auto,
+        "cache": cache, "cache_stats": result_cache_stats(db),
+        "in_flight": {"queries": len(in_flight)},
+        "merged_columns_checked": n_cols,
+        "small": {"growth": grown, "new_arity_rows": sdb.dev.buckets[3].size,
+                  "rebuild_delta_version": sdas.db.delta_version},
+        "routes": routes, "launches": launches, "phase_s": time.perf_counter() - t_phase,
+    })
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=0.1,
@@ -1413,6 +1940,10 @@ def main(argv=None) -> int:
         launches[name] += serving[name]
     launches["multiway"] = phase_planned(das, families)["multiway"]
     phase_count_batch(args, das, data, genes, host)
+    api = phase_api(args, das, data, genes, host, families, smi)
+    commit = phase_commit(args, das, data, genes, host, smi, upload_s, slice_p50)
+    for name in TPU_KERNELS:
+        launches[name] += api[name] + commit[name]
 
     kernels_line = []
     for name, (source, replaces) in TPU_KERNELS.items():

@@ -10,20 +10,22 @@ CPU).  `device=None` means CUDA and raises without a card; pass
 `query_many` / `query_many_dispatch` are the batched serving path: the
 fused-compilable queries of a batch dispatch together and pay ONE host
 fetch per retry round; the answers are the strings `query()` gives.
+`commit_transaction` commits incrementally into the device store
+(storage/delta.py); `explain` renders the planner's costed plan.
 
-Not ported yet: transactions and incremental commits, checkpoints and
-snapshots, `explain`, the read surface (`get_node` ... `get_node_name`),
-the sharded backend."""
+Not ported yet: checkpoints and snapshots, the canonical loader, the
+sharded backend."""
 
 from __future__ import annotations
 
 import json
 import logging
 from enum import Enum, auto
-from typing import Dict, List, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 from das_tpu_torch.core.config import DasConfig
 from das_tpu_torch.core.exceptions import BreakerOpenError
+from das_tpu_torch.core.schema import UNORDERED_LINK_TYPES, WILDCARD
 from das_tpu_torch.query import compiler as query_compiler
 from das_tpu_torch.query.ast import LogicalExpression, PatternMatchingAnswer
 from das_tpu_torch.storage.atom_table import AtomSpaceData
@@ -37,6 +39,23 @@ class QueryOutputFormat(int, Enum):
     HANDLE = auto()
     ATOM_INFO = auto()
     JSON = auto()
+
+
+class Transaction:
+    """Buffer of toplevel MeTTa expression strings for an incremental
+    commit."""
+
+    def __init__(self):
+        self.expressions: List[str] = []
+
+    def add(self, expression: str) -> None:
+        self.expressions.append(expression)
+
+    # the reference's spelling of the same operation
+    add_toplevel_expression = add
+
+    def metta_string(self) -> str:
+        return "\n".join(self.expressions)
 
 
 class _QueryManyJob:
@@ -62,11 +81,12 @@ class _QueryManyJob:
         self.pending = None
         #: the first settle round's host fetch, ms (None: no fetch happened)
         self.settle_rtt_ms = None
-        # the store (by identity) and generation the batch was planned and
-        # dispatched against: a rebuild before settle re-interns row ids,
-        # so settle must not materialize this batch's tables through it
+        # the store (by identity) and delta_version the batch was planned
+        # and dispatched against: a commit before settle may re-intern row
+        # ids (a rebuild moves every link row), so settle must not
+        # materialize this batch's tables through the new registries
         self.db_ref = das.db
-        self.version = getattr(das.db, "generation", None)
+        self.version = getattr(das.db, "delta_version", None)
         if hasattr(das.db, "dev") and queries:
             for i, q in enumerate(queries):
                 plans = query_compiler.plan_query(das.db, q)
@@ -79,14 +99,15 @@ class _QueryManyJob:
 
     def _stale(self) -> bool:
         """True when the dispatched rounds no longer describe the live
-        store: the backend was swapped or rebuilt since dispatch."""
+        store: the backend was swapped, or a commit bumped delta_version
+        past the one captured at dispatch."""
         db = self.das.db
-        return db is not self.db_ref or getattr(db, "generation", None) != self.version
+        return db is not self.db_ref or getattr(db, "delta_version", None) != self.version
 
     def _stream_settled(self, pending, answer_fn):
         """Stream the fused verdicts: record the settle round-trip at the
         first yield after a fetch, re-check staleness at every yield (a
-        rebuild between yields leaves the rest to the per-query loop), and
+        commit between yields leaves the rest to the per-query loop), and
         format each entry with `answer_fn(j, table)`; a failing entry
         degrades alone to the per-query dispatcher.  Yields
         `(query index, answer)`."""
@@ -112,7 +133,7 @@ class _QueryManyJob:
         das = self.das
         done = [False] * len(self.queries)
         if self.pending is not None and self._stale():
-            # the store was rebuilt between dispatch and settle: drop the
+            # a commit landed between dispatch and settle: drop the
             # dispatched rounds and answer everything on the live store
             self.pending = None
         if self.pending is not None:
@@ -166,7 +187,7 @@ class DistributedAtomSpace:
         self.config.backend = backend
         self.device = kwargs.get("device")
         self.data = kwargs.get("data") or AtomSpaceData()
-        self.data.pattern_black_list = list(self.config.pattern_black_list)
+        self.pattern_black_list = list(self.config.pattern_black_list)
         self.db = self._make_backend(backend)
         log.info(f"New Distributed Atom Space '{self.database_name}' (backend={backend})")
 
@@ -183,7 +204,25 @@ class DistributedAtomSpace:
         else:
             self.db.prefetch()
 
+    @property
+    def pattern_black_list(self) -> List[str]:
+        """Lives on the AtomSpaceData, so every backend reads the same
+        list; assignment writes through."""
+        return self.data.pattern_black_list
+
+    @pattern_black_list.setter
+    def pattern_black_list(self, value: List[str]) -> None:
+        self.data.pattern_black_list = list(value)
+
     # -- public API --------------------------------------------------------
+
+    def clear_database(self) -> None:
+        """An empty store on a new backend of the same kind and device,
+        keeping the black list."""
+        black_list = self.pattern_black_list
+        self.data = AtomSpaceData()
+        self.data.pattern_black_list = black_list
+        self.db = self._make_backend(self.config.backend)
 
     def count_atoms(self) -> Tuple[int, int]:
         return self.db.count_atoms()
@@ -200,6 +239,119 @@ class DistributedAtomSpace:
             answer = self.db.get_atom_as_deep_representation(handle)
             return json.dumps(answer, sort_keys=False, indent=4)
         raise ValueError(f"Invalid output format: '{output_format}'")
+
+    def get_node(self, node_type: str, node_name: str,
+                 output_format: QueryOutputFormat = QueryOutputFormat.HANDLE
+                 ) -> Union[str, Dict, None]:
+        node_handle = self.db.get_node_handle(node_type, node_name)
+        if not self.db.node_exists(node_type, node_name):
+            log.warning(f"Attempt to access an invalid Node '{node_type}:{node_name}'")
+            return None
+        if output_format == QueryOutputFormat.HANDLE:
+            return node_handle
+        if output_format == QueryOutputFormat.ATOM_INFO:
+            return self.db.get_atom_as_dict(node_handle)
+        if output_format == QueryOutputFormat.JSON:
+            answer = self.db.get_atom_as_deep_representation(node_handle)
+            return json.dumps(answer, sort_keys=False, indent=4)
+        raise ValueError(f"Invalid output format: '{output_format}'")
+
+    def get_nodes(self, node_type: str, node_name: Optional[str] = None,
+                  output_format: QueryOutputFormat = QueryOutputFormat.HANDLE
+                  ) -> Union[List[str], List[Dict], str]:
+        if node_name is not None:
+            handle = self.db.get_node_handle(node_type, node_name)
+            answer = [handle] if self.db.node_exists(node_type, node_name) else []
+        else:
+            answer = self.db.get_all_nodes(node_type)
+        if output_format == QueryOutputFormat.HANDLE or not answer:
+            return answer
+        if output_format == QueryOutputFormat.ATOM_INFO:
+            return [self.db.get_atom_as_dict(h) for h in answer]
+        if output_format == QueryOutputFormat.JSON:
+            deep = [self.db.get_atom_as_deep_representation(h) for h in answer]
+            return json.dumps(deep, sort_keys=False, indent=4)
+        raise ValueError(f"Invalid output format: '{output_format}'")
+
+    def get_link(self, link_type: str, targets: Optional[List[str]] = None,
+                 output_format: QueryOutputFormat = QueryOutputFormat.HANDLE
+                 ) -> Union[str, Dict, None]:
+        link_handle = self.db.get_link_handle(link_type, targets or [])
+        if not self.db.link_exists(link_type, targets or []):
+            return None
+        if output_format == QueryOutputFormat.HANDLE:
+            return link_handle
+        if output_format == QueryOutputFormat.ATOM_INFO:
+            return self.db.get_atom_as_dict(link_handle, len(targets or []))
+        if output_format == QueryOutputFormat.JSON:
+            answer = self.db.get_atom_as_deep_representation(link_handle, len(targets or []))
+            return json.dumps(answer, sort_keys=False, indent=4)
+        raise ValueError(f"Invalid output format: '{output_format}'")
+
+    def _to_handle_list(self, db_answer) -> List[str]:
+        if not db_answer:
+            return []
+        return [atom if isinstance(atom, str) else atom[0] for atom in db_answer]
+
+    @staticmethod
+    def _handle_arity(atom):
+        if isinstance(atom, str):
+            return atom, -1
+        handle, targets = atom
+        return handle, len(targets)
+
+    def _to_link_dict_list(self, db_answer) -> List[Dict]:
+        return [self.db.get_atom_as_dict(*self._handle_arity(atom)) for atom in db_answer or []]
+
+    def _to_json(self, db_answer) -> str:
+        answer = [self.db.get_atom_as_deep_representation(*self._handle_arity(atom))
+                  for atom in db_answer or []]
+        return json.dumps(answer, sort_keys=False, indent=4)
+
+    def get_links(self, link_type: str, target_types: Optional[List[str]] = None,
+                  targets: Optional[List[str]] = None,
+                  output_format: QueryOutputFormat = QueryOutputFormat.HANDLE
+                  ) -> Union[List[str], List[Dict], str]:
+        if link_type is None:
+            link_type = WILDCARD
+        if target_types is not None and link_type != WILDCARD:
+            db_answer = self.db.get_matched_type_template([link_type, *target_types])
+        elif targets is not None:
+            if link_type in UNORDERED_LINK_TYPES and WILDCARD in targets:
+                # the reference's production semantics for an unordered
+                # wildcard probe: the probe key hashes the SORTED handles,
+                # so it matches positionally against the sorted probe; the
+                # store's multiset probe is a superset, filtered down here
+                probe = sorted(targets)
+                db_answer = [
+                    m for m in self.db.get_matched_links(link_type, probe)
+                    if all(p == WILDCARD or p == t for p, t in zip(probe, m[1]))
+                ]
+            else:
+                db_answer = self.db.get_matched_links(link_type, targets)
+        elif link_type != WILDCARD:
+            db_answer = self.db.get_matched_type(link_type)
+        else:
+            raise ValueError("Invalid parameters")
+        if output_format == QueryOutputFormat.HANDLE:
+            return self._to_handle_list(db_answer)
+        if output_format == QueryOutputFormat.ATOM_INFO:
+            return self._to_link_dict_list(db_answer)
+        if output_format == QueryOutputFormat.JSON:
+            return self._to_json(db_answer)
+        raise ValueError(f"Invalid output format: '{output_format}'")
+
+    def get_link_type(self, link_handle: str) -> str:
+        return self.db.get_link_type(link_handle)
+
+    def get_link_targets(self, link_handle: str) -> List[str]:
+        return self.db.get_link_targets(link_handle)
+
+    def get_node_type(self, node_handle: str) -> str:
+        return self.db.get_node_type(node_handle)
+
+    def get_node_name(self, node_handle: str) -> str:
+        return self.db.get_node_name(node_handle)
 
     # -- query -------------------------------------------------------------
 
@@ -269,6 +421,26 @@ class DistributedAtomSpace:
             else:
                 raise ValueError(f"Invalid output format: '{output_format}'")
         return f"{tag_not}{mapping}"
+
+    def explain(self, query: LogicalExpression, execute: bool = False,
+                compile: bool = False) -> Dict:
+        """The planner's costed plan for `query` (planner.explain): order,
+        route, estimated rows and capacity seeds; with execute=True the
+        actual per-stage rows and retry rounds beside them."""
+        return query_compiler.explain(self.db, query, execute=execute, compile=compile)
+
+    # -- transactions ------------------------------------------------------
+
+    def open_transaction(self) -> Transaction:
+        return Transaction()
+
+    def commit_transaction(self, transaction: Transaction) -> None:
+        """Parse the transaction into the host store, then commit it to the
+        device store (incrementally where storage/delta.py allows)."""
+        from das_tpu_torch.storage.atom_table import load_metta_text
+
+        load_metta_text(transaction.metta_string(), self.data)
+        self._refresh()
 
     # -- bulk loads --------------------------------------------------------
 

@@ -16,7 +16,8 @@ config only (no environment variable):
     so `use_planner="off"` turns it off too.
 
 `result_cache_size` bounds the fused executor's answered-result cache
-(0 disables it)."""
+(0 disables it); `delta_merge_threshold` bounds the atoms incremental
+commits may add before the store is fully re-finalized."""
 
 from __future__ import annotations
 
@@ -30,11 +31,14 @@ class DasConfig:
     # capacity (rows) for padded device result buffers; doubled on overflow
     initial_result_capacity: int = 1 << 14
     max_result_capacity: int = 1 << 24
+    # incremental commits: total delta atoms held as an LSM overlay before
+    # the store is fully re-finalized (storage/tensor_db.py refresh)
+    delta_merge_threshold: int = 1 << 16
     pattern_black_list: List[str] = field(default_factory=list)
     use_planner: str = "auto"
     use_multiway: str = "auto"
     # answered-result cache of the fused executor (query/fused.py
     # ResultCache): at most this many results per executor, keyed by plan
-    # shape and grounded values and valid for one store generation; the
+    # shape and grounded values and valid for one `delta_version`; the
     # batched serving path and count_batch consult it.  0 disables it.
     result_cache_size: int = 256

@@ -13,7 +13,8 @@ that brings its route.  PLANNER_KEYS is the planner's telemetry
   programs                  programs run for planned jobs (one per round)
   round0 / retries          planned jobs settled with no capacity retry /
                             retry rounds planned jobs still paid
-  est_rows / actual_rows    summed estimated vs actual step output rows"""
+  est_rows / actual_rows    summed estimated vs actual step output rows
+  explain                   conjunctions planned by explain()"""
 
 ROUTE_KEYS = (
     "fused",
@@ -35,4 +36,5 @@ PLANNER_KEYS = (
     "retries",
     "est_rows",
     "actual_rows",
+    "explain",
 )

@@ -16,10 +16,13 @@ starting rung of the overflow-retry ladder.
 
 `PLANNER_COUNTS` (keys from ops/counters.py PLANNER_KEYS) tracks planned
 vs greedy traffic, retry rounds, and summed estimated vs actual step rows;
-`snapshot()` adds their ratio."""
+`snapshot()` adds their ratio.  `explain(db, query)` renders one query's
+costed plan, and with execute=True runs it through the executor's
+dispatch/settle halves and reports the actual rows beside the estimates."""
 
 from __future__ import annotations
 
+import hashlib
 from typing import Dict
 
 from das_tpu_torch.ops.counters import PLANNER_KEYS
@@ -75,3 +78,84 @@ from das_tpu_torch.planner.stats import (  # noqa: E402,F401
     CardinalityEstimator,
     estimator_for,
 )
+
+
+def _term_brief(plan) -> Dict:
+    """One term of explain's `order`."""
+    return {
+        "arity": plan.arity,
+        "type_id": plan.type_id,
+        "ctype": plan.ctype,
+        "fixed": list(plan.fixed),
+        "vars": list(plan.var_names),
+        "negated": plan.negated,
+    }
+
+
+def _explain_plans(db, plans, execute: bool, compile_report: bool = False) -> Dict:
+    PLANNER_COUNTS["explain"] += 1
+    planned = plan_conjunction(db, list(plans))
+    out: Dict = {
+        "route": planned.route if planned is not None else "fused",
+        "planner_enabled": enabled(db.config),
+        "planned": planned is not None,
+    }
+    if planned is not None:
+        out.update(
+            method=planned.method,
+            cost_bytes=planned.cost,
+            order=[_term_brief(plans[i]) for i in planned.order],
+            est_term_rows=list(planned.est_term_rows),
+            est_join_rows=list(planned.est_join_rows),
+            join_cap_seeds=list(planned.join_cap_seeds),
+            # leading positives fused into one k-way step (0 = binary chain)
+            multiway=planned.multiway,
+        )
+    if not execute:
+        return out
+    # the job runs through the executor's own dispatch/settle halves, so
+    # "actual" describes the program a query would run (learned caps too)
+    from das_tpu_torch.query.fused import fetch, get_executor
+
+    job = get_executor(db)._exec_job(list(plans), False)
+    if job is None:
+        out["actual"] = None  # declined: the staged path answers
+        if compile_report:
+            out["compile"] = None
+        return out
+    while True:
+        dev = job.dispatch()
+        if job.settle(fetch(*dev), dev):  # one host fetch a round
+            break
+    result = job.result
+    out["actual"] = {
+        "count": None if result is None else result.count,
+        "term_rows": list(job.last_ranges or ()),
+        "join_rows": list(job.last_join_rows or ()),
+        "retry_rounds": max(0, job.rounds - 1),
+        "reseed_fallback": bool(getattr(result, "reseed_needed", False)),
+    }
+    if compile_report:
+        # no program ledger in the port yet: the block the JAX package
+        # gives with its ledger off, keyed by the same digest (the md5 of
+        # the executed signature's repr, folded to 16 hex chars)
+        digest = hashlib.md5(repr((job.plan_sig(), False)).encode()).hexdigest()[:16]
+        out["compile"] = {"enabled": False, "digest": digest, "rows": []}
+    return out
+
+
+def explain(db, query, execute: bool = False, compile: bool = False) -> Dict:
+    """What the planner decided for a conjunctive `query`: order, route,
+    estimated rows, capacity seeds; with execute=True also the actual
+    per-stage rows and retry rounds; compile=True (implies execute) adds
+    the `compile` block.  A query outside the compiled conjunctive subset
+    gives route "host", which answers it here (the JAX package reports its
+    device tree executor's sites there; that comes with the tree
+    executor)."""
+    from das_tpu_torch.query import compiler as qc
+
+    execute = execute or compile
+    plans = qc.plan_query(db, query)
+    if plans is None:
+        return {"route": "host", "planned": False}
+    return _explain_plans(db, plans, execute, compile_report=compile)

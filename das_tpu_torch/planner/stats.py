@@ -18,9 +18,9 @@ except where both sides are base terms sharing one variable: then the
 sparse degree dot product sum_v deg_L(v) * deg_R(v) is exact, and its
 k-way form sum_v prod_j deg_j(v) sizes the multiway step.
 
-The estimator is valid for one store generation (`TensorDB.generation`,
-bumped by `refresh()`); `estimator_for` rebuilds it when the generation
-moved.  Pure numpy over `storage/atom_table.py host_segments`."""
+The estimator is valid for one `delta_version` of the store (bumped by
+every commit and rebuild, storage/delta.py); `estimator_for` rebuilds it
+when the version moved.  Pure numpy over `storage/atom_table.py host_segments`."""
 
 from __future__ import annotations
 
@@ -118,12 +118,12 @@ class RelEstimate:
 
 
 class CardinalityEstimator:
-    """Per-store cardinality estimates, valid for one store generation.
+    """Per-store cardinality estimates, valid for one delta_version.
     Every statistic is memoized."""
 
     def __init__(self, db):
         self.db = db
-        self.version = db.generation
+        self.version = db.delta_version
         self._rows: Dict[Tuple, int] = {}
         self._distinct: Dict[Tuple[int, int, int], int] = {}
         self._supports: Dict[Tuple, object] = {}
@@ -274,9 +274,10 @@ class CardinalityEstimator:
 
 
 def estimator_for(db) -> CardinalityEstimator:
-    """The store's live estimator, rebuilt when its generation moved."""
+    """The store's live estimator, rebuilt when its delta_version moved:
+    statistics invalidate exactly like result caches."""
     est = getattr(db, "_planner_estimator", None)
-    if est is None or est.version != db.generation or est.db is not db:
+    if est is None or est.version != db.delta_version or est.db is not db:
         est = CardinalityEstimator(db)
         db._planner_estimator = est
     return est

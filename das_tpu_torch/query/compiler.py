@@ -405,6 +405,15 @@ def dispatch(db, query: LogicalExpression, answer: PatternMatchingAnswer) -> boo
     return matched
 
 
+def explain(db, query: LogicalExpression, execute: bool = False,
+            compile: bool = False) -> dict:
+    """The planner's costed plan for `query` (planner.explain); here so the
+    facade shares one entry point with `dispatch`."""
+    from das_tpu_torch import planner
+
+    return planner.explain(db, query, execute=execute, compile=compile)
+
+
 def count_matches(db: TensorDB, query: LogicalExpression) -> Optional[int]:
     """Exact match count without materializing the assignments.  None
     where the JAX package's tree executor declines: a query that is not a

@@ -35,7 +35,7 @@ round at the current capacities without waiting for the card, and
 the capacities for another round.  The serving path (`dispatch_many`,
 `settle_many_iter`) dispatches a whole batch before paying ONE host fetch
 per retry round for all of its jobs together; answered results are kept in
-a `ResultCache` for the store generation.
+a `ResultCache` for the store's `delta_version`.
 
 `count_batch` counts many queries per call: queries group by shape, each
 group runs its lanes one after another on one stream (the eager
@@ -623,15 +623,15 @@ def fetch(*tensors) -> List[np.ndarray]:
 
 
 class ResultCache:
-    """Answered results of the fused executor, valid for one store
-    generation (`TensorDB.generation`, bumped by `refresh()`; it stands in
-    for the JAX package's incremental-commit `delta_version`).
+    """Answered results of the fused executor, valid for one
+    `delta_version` of the store (storage/delta.py: every commit and every
+    rebuild bumps it).
 
     The key is (per-term plan tuple, count_only): the TermPlan tuple
     carries the plan's shape and every grounded value, and global rows are
-    stable within a generation, so a hit is the cached `FusedResult`
+    stable within a version, so a hit is the cached `FusedResult`
     (device tensors and the host copies fetched with them) with no device
-    work and no host fetch.  A generation change clears the cache and
+    work and no host fetch.  A version change clears the cache and
     counts one invalidation.  Entries are LRU-bounded by
     `config.result_cache_size` (0 disables the cache); reseed-flagged
     results are never cached, nor a table wider than `MAX_ENTRY_ROWS`
@@ -662,7 +662,7 @@ class ResultCache:
         return int(getattr(self.db.config, "result_cache_size", 0))
 
     def version(self):
-        return getattr(self.db, "generation", None)
+        return getattr(self.db, "delta_version", None)
 
     def _sync_version(self) -> None:
         """Caller holds the lock."""
@@ -687,9 +687,9 @@ class ResultCache:
             return hit
 
     def put(self, key, result, version) -> None:
-        """`version` is the generation the caller DISPATCHED against: a
-        store rebuilt between dispatch and settle must not get a result of
-        the old store cached under the new generation."""
+        """`version` is the delta_version the caller DISPATCHED against: a
+        store committed to between dispatch and settle must not get a
+        result of the old store cached under the new version."""
         limit = self.limit()
         if limit <= 0 or result is None or result.reseed_needed:
             return
@@ -751,6 +751,8 @@ class _ExecJob:
         #: leading positives fused into one multiway step (0 = binary chain)
         self.multiway = multiway
         self.rounds = 0
+        self.last_ranges = None      # final round's exact per-term ranges
+        self.last_join_rows = None   # final round's exact per-step totals
         self.names = fold_join_meta(sigs)[2]
         #: set by the settle that finishes the job; None at the ceiling
         self.result: Optional[FusedResult] = None
@@ -796,8 +798,10 @@ class _ExecJob:
             self.term_caps, self.join_caps = new_tc, new_jc
             return False
         self.ex._caps[self.sigs] = (self.term_caps, self.join_caps)
+        self.last_ranges = [int(r) for r in ranges]
+        self.last_join_rows = [int(t) for t in jcounts]
         if self.planned is not None:
-            observe_settle(self.planned, [int(t) for t in jcounts], self.rounds)
+            observe_settle(self.planned, self.last_join_rows, self.rounds)
         count, reseed, pos_empty = int(stats[0]), bool(stats[1]), bool(stats[2])
         n_positive = sum(1 for s in self.sigs if not s.negated)
         self.result = FusedResult(
@@ -819,7 +823,7 @@ class _ExecJob:
 class _PendingMany:
     """One dispatched-but-unsettled batch: cache-prefilled results, the
     in-flight jobs with their index lists and cache keys, the tensors of
-    the enqueued round, and the generation the batch was dispatched
+    the enqueued round, and the delta_version the batch was dispatched
     against (it guards the settle-time cache inserts)."""
 
     __slots__ = ("results", "jobs", "outs", "version", "fetch_ms")
@@ -873,7 +877,7 @@ def settle_pending_iter(results_cache, pending):
     whose verdict landed in that round's ONE host fetch (a ceiling yields
     None).  Jobs whose capacities grew re-dispatch here, inside the
     iterator.  Settle-time cache inserts are guarded by the dispatch-time
-    generation.  Indices declined at dispatch are never yielded (their
+    delta_version.  Indices declined at dispatch are never yielded (their
     `pending.results` entry stays None).  A fetch is one attempt: there
     is no fault-injection or retry policy around it yet."""
     for i, hit in enumerate(pending.results):
@@ -1258,7 +1262,7 @@ class FusedExecutor:
         out: List[Optional[int]] = [None] * len(plans_list)
         groups: Dict[Tuple, List[int]] = {}
         # answered counts live in the result cache under count_only=True;
-        # the generation read here guards the inserts
+        # the delta_version read here guards the inserts
         cache_keys: Dict[int, Tuple] = {}
         cache_version = self.results.version()
         for idx, plans in enumerate(plans_list):
@@ -1380,8 +1384,10 @@ class FusedExecutor:
 
 
 def get_executor(db) -> FusedExecutor:
-    """The per-database executor, cached on the device tables so a
-    `refresh()` (which rebuilds them) drops it."""
+    """The per-database executor, cached on the device tables so a full
+    rebuild (which replaces them) drops it; an incremental commit keeps it
+    and its learned capacities, and its result cache moves to the new
+    delta_version."""
     ex = getattr(db.dev, "_fused_executor", None)
     if ex is None or ex.db is not db:
         ex = FusedExecutor(db)

@@ -12,8 +12,12 @@ reads the tensors through `.dev`.
 than moving quietly to the CPU.  Tests pass `device="cpu"`, and the
 kernel wrappers then take their plain PyTorch versions.
 
-Incremental commits (delta merges into the capacity slack) are not
-ported yet: `refresh()` re-finalizes and re-uploads the whole store."""
+A commit is incremental (storage/delta.py): `refresh()` interns the new
+atoms, merges each arity's small delta bucket into the capacity slack of
+the device tensors, and re-finalizes only when the delta path is unsafe
+or the overlay passed `config.delta_merge_threshold`.  Merged tensors are
+always new tensors, never a live one written in place, so a batch
+dispatched before the commit still reads the tables it was planned on."""
 
 from __future__ import annotations
 
@@ -25,6 +29,14 @@ import torch
 
 from das_tpu_torch.core.config import DasConfig
 from das_tpu_torch.storage.atom_table import AtomSpaceData, Finalized, LinkBucket
+from das_tpu_torch.storage.delta import (
+    FULL,
+    NOOP,
+    IncrementalCommitMixin,
+    capacity_class,
+    delta_class,
+    merge_sorted_index,
+)
 from das_tpu_torch.storage.memory_db import MemoryDB
 
 
@@ -38,12 +50,6 @@ def resolve_device(device=None) -> torch.device:
             "to run the plain PyTorch route"
         )
     return dev
-
-
-def capacity_class(n: int) -> int:
-    """Device-bucket capacity for n real rows: ~6% slack (min 64), the
-    same deterministic class as the JAX store (storage/delta.py)."""
-    return n + max(64, n >> 4)
 
 
 @dataclass
@@ -140,11 +146,29 @@ class DeviceTables:
         return total
 
 
-class TensorDB(MemoryDB):
+def _merge_padded(base_keys, base_perm, delta_keys, delta_perm):
+    """Sorted-index merge into a capacity-padded base at a fixed length:
+    delta pad entries (dtype-max keys) sort past the base's pad region and
+    fall off the final cut, so the tensor length never changes."""
+    cap = base_keys.shape[0]
+    k, p = merge_sorted_index(base_keys, base_perm, delta_keys, delta_perm)
+    return k[:cap], p[:cap]
+
+
+def _insert_rows(col: torch.Tensor, block: torch.Tensor, n: int) -> torch.Tensor:
+    """A copy of `col` with the fixed-size delta `block` written at row n
+    (the live column is never written)."""
+    out = col.clone()
+    out[n:n + block.shape[0]] = block
+    return out
+
+
+class TensorDB(IncrementalCommitMixin, MemoryDB):
     """MemoryDB whose finalized columns also live on a torch device.  The
     DBInterface surface (get_matched_links and friends) is inherited from
     MemoryDB and answers on the host; compiled conjunctive queries run on
-    the device tables through `.dev`."""
+    the device tables through `.dev`.  `get_incoming` and the commit path
+    come from IncrementalCommitMixin."""
 
     def __init__(self, data: Optional[AtomSpaceData] = None,
                  config: Optional[DasConfig] = None, device=None):
@@ -153,24 +177,102 @@ class TensorDB(MemoryDB):
         self.config = config or DasConfig()
         self.fin: Finalized = self.data.finalize()
         self.dev = DeviceTables(self.fin, self.device)
-        #: bumped whenever the store is rebuilt: the planner's statistics
-        #: and the count result cache hold for one generation
-        self.generation = 0
+        self._reset_delta_state()
 
     def __repr__(self):
         return "<TensorDB>"
 
     def refresh(self) -> None:
-        """Re-sync the device store after host-side mutations: a full
-        re-finalize and re-upload (the incremental delta merge is a later
-        slice).  Replacing `.dev` drops the cached fused executor too."""
+        """Re-sync the device store after host-side mutations (transaction
+        commits, loads).  A small delta takes the incremental path: only
+        the new records are columnized, only they travel to the device,
+        and each sorted posting index is extended by an O(n) merge.  Past
+        config.delta_merge_threshold overlay atoms, or where a delta is
+        unsafe (storage/delta.py _plan_refresh), the store is re-finalized
+        and re-uploaded.  Every outcome but NOOP advances `delta_version`;
+        the full path also replaces `.dev`, which drops the cached fused
+        executor."""
         self.prefetch()
-        fin = self.data.finalize()
-        if fin is self.fin:
+        action = self._plan_refresh()
+        if action == NOOP:
             return
-        self.fin = fin
-        self.dev = DeviceTables(self.fin, self.device)
-        self.generation += 1
+        if action == FULL:
+            self.fin = self.data.finalize()
+            self.dev = DeviceTables(self.fin, self.device)
+            self._reset_delta_state()
+            return
+        self._apply_delta(*action)
+
+    # -- the device half of an incremental commit ----------------------------
+
+    def _grow_bucket(self, base: DeviceBucket, new_cap: int) -> DeviceBucket:
+        """Re-pad a bucket to a larger capacity class (only when commits
+        exhaust the ~6% slack).  Real rows, and the real sorted keys and
+        perms in the leading positions, are kept; the new slack holds each
+        field's pad."""
+        n = base.size
+
+        def grow(t, fill):
+            if fill is None:
+                fill = torch.iinfo(t.dtype).max
+            pad = torch.full((new_cap - n, *t.shape[1:]), fill, dtype=t.dtype, device=t.device)
+            return torch.cat([t[:n], pad], dim=0)
+
+        fields = {name: grow(getattr(base, name), fill) for name, fill in BUCKET_PADS}
+        for name, fill in BUCKET_LIST_PADS:
+            fields[name] = [grow(t, fill) for t in getattr(base, name)]
+        return DeviceBucket(arity=base.arity, size=n, capacity=new_cap, **fields)
+
+    def _stage_delta_merge(self, delta: LinkBucket):
+        """Compute a commit bucket's merge into the device tables and return
+        (swap, became_base, slots): `swap` is the deferred assignment that
+        makes the merged bucket visible (storage/delta.py _apply_delta),
+        became_base when the delta is the first bucket of its arity, slots
+        the device rows it occupies (the delta's size).  Every merged
+        column is a new tensor, so nothing visible changes until `swap`."""
+        arity = delta.arity
+        base = self.dev.buckets.get(arity)
+        if base is None or base.size == 0:
+            # first links of this arity: the delta is the base
+            merged = upload_bucket(delta, self.device)
+
+            def swap():
+                self.dev.buckets[arity] = merged
+
+            return swap, True, delta.size
+        n, d = base.size, delta.size
+        dcap = delta_class(d)
+        if n + dcap > base.capacity:
+            base = self._grow_bucket(base, capacity_class(n + dcap))
+
+        def dpad(x, fill):
+            return torch.from_numpy(np.ascontiguousarray(_pad_rows(x, dcap, fill))).to(
+                self.device)
+
+        def merge(bk, bo, dk, do):
+            # the delta's perm is offset into the merged row space on the host
+            return _merge_padded(bk, bo, dpad(dk, None), dpad(do.astype(np.int32) + n, 0))
+
+        fields = {}
+        for keys, order in (("key_type_pos", "order_by_type_pos"), ("key_pos", "order_by_pos"),
+                            ("key_type_spos", "order_by_type_spos")):
+            pairs = [merge(bk, bo, dk, do) for bk, bo, dk, do in zip(
+                getattr(base, keys), getattr(base, order),
+                getattr(delta, keys), getattr(delta, order))]
+            fields[keys] = [k for k, _ in pairs]
+            fields[order] = [o for _, o in pairs]
+        for keys, order in (("key_type", "order_by_type"), ("key_ctype", "order_by_ctype")):
+            fields[keys], fields[order] = merge(getattr(base, keys), getattr(base, order),
+                                                getattr(delta, keys), getattr(delta, order))
+        for name in ("rows", "type_id", "ctype", "targets", "targets_sorted"):
+            fill = dict(BUCKET_PADS)[name]
+            fields[name] = _insert_rows(getattr(base, name), dpad(getattr(delta, name), fill), n)
+        merged = DeviceBucket(arity=arity, size=n + d, capacity=base.capacity, **fields)
+
+        def swap():
+            self.dev.buckets[arity] = merged
+
+        return swap, False, d
 
     # -- low-level lookups (shared with the query compiler) ----------------
 

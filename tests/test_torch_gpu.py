@@ -452,3 +452,78 @@ def test_execute_exact_on_card_equals_cpu():
         assert rows[0] == rows[1] and len(rows[0]) == got.count
         re_seeded += int(got.stats[1]) > 0
     assert re_seeded >= 1
+
+
+def _commit_lines(names, procs, k):
+    """Commit k: 8 new genes, each a Member of two existing processes and
+    Interacts with an existing gene; the generator's nodes are declared again
+    so that the parser resolves them (a declaration adds no atom)."""
+    lines = [f'(: "{p}" BiologicalProcess)' for p in procs[:4]]
+    lines += [f'(: "{g}" Gene)' for g in names[:4]]
+    for i in range(8):
+        g = f"GENE:commit{k}_{i}"
+        lines += [f'(: "{g}" Gene)', f'(Member "{g}" "{procs[i % 4]}")',
+                  f'(Member "{g}" "{procs[(i + 1) % 4]}")', f'(Interacts "{g}" "{names[i % 4]}")']
+    return lines
+
+
+@pytest.mark.gpu
+def test_commit_on_card_equals_cpu():
+    """Incremental commits on the card leave the device tables the CPU port
+    leaves, bit for bit, and the same answers."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the device merge runs on the card here")
+    from das_tpu_torch.api.atomspace import DistributedAtomSpace
+    from das_tpu_torch.models.bio import build_bio_atomspace
+    from das_tpu_torch.storage.tensor_db import BUCKET_LIST_PADS, BUCKET_PADS
+
+    stores = []
+    for device in ("cuda", "cpu"):
+        data, genes, procs = build_bio_atomspace(seed=5, **SMALL)
+        names = [data.nodes[h].name for h in genes]
+        pnames = [data.nodes[h].name for h in procs]
+        das = DistributedAtomSpace(backend="tensor", data=data, device=device)
+        for k in range(3):
+            tx = das.open_transaction()
+            for line in _commit_lines(names, pnames, k):
+                tx.add(line)
+            das.commit_transaction(tx)
+        stores.append(das)
+    card, cpu = stores
+    assert card.db._delta_total == cpu.db._delta_total == 3 * 32
+    assert card.db.delta_version == cpu.db.delta_version == 4
+    for arity, cb in cpu.db.dev.buckets.items():
+        gb = card.db.dev.buckets[arity]
+        assert (gb.size, gb.capacity) == (cb.size, cb.capacity)
+        for name, _ in BUCKET_PADS:
+            assert torch.equal(getattr(gb, name).cpu(), getattr(cb, name)), name
+        for name, _ in BUCKET_LIST_PADS:
+            for g, c in zip(getattr(gb, name), getattr(cb, name)):
+                assert torch.equal(g.cpu(), c), name
+    batch, _reseeds = _bio_queries([f"GENE:commit2_{i}" for i in range(8)] * 3)
+    assert card.query_many(batch[:17]) == cpu.query_many(batch[:17])
+
+
+@pytest.mark.gpu
+def test_explain_execute_on_card_equals_cpu():
+    """explain(execute=True) on the card reports the CPU port's plan and
+    actual rows; a planned chain's predicted route names the hand-written
+    kernels where the CPU names their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels only run on the GPU")
+    from das_tpu_torch.api.atomspace import DistributedAtomSpace
+    from das_tpu_torch.models.bio import build_bio_atomspace
+
+    data, genes, _ = build_bio_atomspace(seed=5, **SMALL)
+    names = [data.nodes[h].name for h in genes]
+    card = DistributedAtomSpace(backend="tensor", data=data, device="cuda")
+    cpu = DistributedAtomSpace(backend="tensor", data=data, device="cpu")
+    batch, reseeds = _bio_queries(names)
+    for q in batch[:4] + batch[8:10] + batch[-1:] + reseeds[:2]:
+        want, got = cpu.explain(q, execute=True), card.explain(q, execute=True)
+        route = want.pop("route")
+        if want["planned"] and route == "fused":
+            route = "fused_kernel"   # a planned chain on the card names its kernels
+        assert got.pop("route") == route
+        assert got == want
+        assert got["actual"] is not None

@@ -171,8 +171,7 @@ def test_planner_counts_match_das_tpu(kb):
             want.count, want.reseed_needed, want.multiway), name
     assert set(planner.PLANNER_COUNTS) == set(PLANNER_KEYS)
     assert planner.PLANNER_COUNTS == {k: jx_planner.PLANNER_COUNTS[k] for k in PLANNER_KEYS}
-    assert planner.snapshot() == {k: v for k, v in jx_planner.snapshot().items()
-                                  if k != "explain"}
+    assert planner.snapshot() == jx_planner.snapshot()
     assert planner.PLANNER_COUNTS["greedy"] == 1 and planner.PLANNER_COUNTS["planned"] == 6
     assert compiler.ROUTE_COUNTS["fused_multiway"] == 2
 
@@ -193,7 +192,7 @@ def test_multiway_rows_exact_vs_brute_force(kb):
         deg.update(sel[:, 1].tolist())
     assert int(rows) == sum(d ** 3 for d in deg.values())
     assert est.multiway_rows(plans, "V3") == (rows, True)   # memoized
-    # a refresh moves the generation: the next estimator is a new one
+    # a commit moves the delta_version: the next estimator is a new one
     assert estimator_for(pdb) is est
-    pdb.generation += 1
+    pdb.delta_version += 1
     assert estimator_for(pdb) is not est
