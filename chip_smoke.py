@@ -88,7 +88,26 @@ Phases, one JSON line each:
                ("Member", [gene, "*"]) of 8 genes against numpy in handle
                space, get_node / get_node_name / get_node_type /
                get_link_type / get_link_targets against the records;
-  8. commit  — last, since it changes the store: three transactions of 256
+  8. tree    — the tree executor on the same store, 16 queries a family:
+               Ors of two and of three grounded chains Member(g, $V3) and
+               Member($V2, $V3) (one whole-tree job each: one host fetch a
+               round), an Or with a Not branch (the de-Morgan difference),
+               an Or over different variable sets and an And over an Or
+               (the staged tree), the unordered Interacts template joined
+               to a grounded Interacts term, and on LARGE to a grounded
+               Member term (a composite join); p50 / p90 ms, answers,
+               fetches, rounds, routes and launches per family; every
+               answer against numpy set algebra over the host store, every
+               count_matches against it, no host route.  Then two families
+               again from the cache (0 launches, 0 fetches), explain of
+               three shapes, a whole-tree dispatch queued behind a sleep
+               kernel (it must not wait), the animals Similarity queries
+               against the host algebra (the unordered device probe) and a
+               query the tree planner cannot plan (count_matches None), a
+               cached tree answer across a commit on SMALL, and get_links
+               of 8 genes through the device probes against MemoryDB's
+               host scan of the same store, both timed;
+  9. commit  — last, since it changes the store: three transactions of 256
                new genes (4 Member links into existing processes and 2
                Interacts links with an existing gene each, 1,792 atoms)
                and one of 512 links among existing atoms, through
@@ -103,7 +122,10 @@ Phases, one JSON line each:
                invalidation, no hits, the new answers), a batch dispatched
                before the fourth commit and settled after it, the merged
                posting columns' structure, one merge again on CPU copies
-               (bit-equal); on SMALL, commits until the arity-2 bucket
+               (bit-equal); a whole-tree and a staged tree answer cached
+               before the first commit answer anew after it, and get_links
+               of 8 new or touched genes equals the host scan; on SMALL,
+               commits until the arity-2 bucket
                grows, a new 3-ary link type and a commit past a small
                delta_merge_threshold (a rebuild), each against the host
                algebra.
@@ -1479,6 +1501,345 @@ def phase_api(args, das, data, genes, host, families, smi):
 # ---- phase 8 ---------------------------------------------------------------------
 
 
+def chain_query(gene_name):
+    """Member(g, $V3) and Member($V2, $V3): a grounded chain over {V2, V3}."""
+    from das_tpu_torch.query.ast import And, Link, Node, Variable
+
+    return And([Link("Member", [Node("Gene", gene_name), Variable("V3")], True),
+                Link("Member", [Variable("V2"), Variable("V3")], True)])
+
+
+def unordered_template():
+    """The unordered Interacts template over two genes {V1, V2}."""
+    from das_tpu_torch.query.ast import LinkTemplate, TypedVariable
+
+    return LinkTemplate("Interacts", [TypedVariable("V1", "Gene"),
+                                      TypedVariable("V2", "Gene")], False)
+
+
+def tree_answer(das, query, key):
+    """(matched, negation, answers) of a tree query, each answer in `key`
+    space: an ordered one as frozenset((variable, key)), a composite one as
+    (its ordered part, (each constraint's value set, ...)), an unordered one
+    as ("U", its value set)."""
+    matched, answer = das.query_answer(query)
+    out = set()
+    for a in answer.assignments:
+        if hasattr(a, "unordered_mappings"):
+            om = a.ordered_mapping.mapping if a.ordered_mapping is not None else {}
+            out.add((frozenset((k, key(h)) for k, h in om.items()),
+                     tuple(frozenset(key(h) for h in u.values) for u in a.unordered_mappings)))
+        elif hasattr(a, "symbols"):
+            out.add(("U", frozenset(key(h) for h in a.values)))
+        else:
+            out.add(frozenset((k, key(h)) for k, h in a.mapping.items()))
+    return bool(matched), answer.negation, out
+
+
+class TreeRounds:
+    """While active, counts whole-tree job dispatches (one round each)."""
+
+    def __enter__(self):
+        from das_tpu_torch.query import fused
+
+        self.n = 0
+        self._fn = fn = fused._TreeExecJob.dispatch
+
+        def dispatch(job):
+            self.n += 1
+            return fn(job)
+
+        fused._TreeExecJob.dispatch = dispatch
+        return self
+
+    def __exit__(self, *exc):
+        from das_tpu_torch.query import fused
+
+        fused._TreeExecJob.dispatch = self._fn
+        return False
+
+
+def tree_families(host, das, data, genes, seed, width=16):
+    """The tree phase's query families on the FlyBase-shaped store:
+    {name: [(query, numpy answer set, negation)]}, `width` queries each, the
+    answers as frozenset((variable, row)) (composites as tree_answer gives
+    them)."""
+    from das_tpu_torch.query.ast import And, Link, Node, Not, Or, Variable
+
+    gene_names = [data.nodes[h].name for h in genes]
+    picks = pick_genes(host, gene_names, seed + 11, n=3 * width, n_nonempty=width)
+    row = {g: _gene_row(das, g) for g in picks}
+
+    def chain(g):
+        r = row[g]
+        return {frozenset({("V2", m), ("V3", p)})
+                for p in host.procs(r).tolist() for m in host.members(p).tolist()}
+
+    fam = {"or2": [], "or3": [], "or_not": [], "or_mixed": [], "and_or": [], "unordered": []}
+    for i in range(width):
+        a, b, c = picks[i], picks[width + i], picks[2 * width + i]
+        fam["or2"].append((Or([chain_query(a), chain_query(b)]), chain(a) | chain(b), False))
+        fam["or3"].append((Or([chain_query(a), chain_query(b), chain_query(c)]),
+                           chain(a) | chain(b) | chain(c), False))
+        fam["or_not"].append((Or([chain_query(a), Not(chain_query(b))]),
+                              chain(b) - chain(a), True))
+        partners_b = {frozenset({("V5", x)}) for x in host.partners(row[b]).tolist()}
+        fam["or_mixed"].append((
+            Or([chain_query(a), Link("Interacts", [Node("Gene", b), Variable("V5")], True)]),
+            chain(a) | partners_b, False))
+        # a has an interaction partner sharing one of its processes
+        partners_a = set(host.partners(row[a]).tolist())
+        fam["and_or"].append((
+            And([Or([chain_query(a), chain_query(b)]),
+                 Link("Interacts", [Node("Gene", a), Variable("V2")], True)]),
+            {s for s in chain(a) | chain(b) if dict(s)["V2"] in partners_a}, False))
+        fam["unordered"].append((
+            And([Link("Interacts", [Node("Gene", a), Variable("V1")], True),
+                 unordered_template()]),
+            {(frozenset({("V1", p)}), (frozenset({p, x}),))
+             for p in set(host.partners(row[a]).tolist())
+             for x in set(host.partners(p).tolist())}, False))
+    return fam
+
+
+def phase_tree(args, das, data, genes, host, large, smi):
+    """The tree executor on the card: Ors of grounded chains (the whole-tree
+    job), a Not branch, an Or over different variable sets and an And over
+    an Or (the staged tree), an unordered Interacts template joined to a
+    grounded Interacts term (FlyBase-shaped) and to a grounded Member term
+    (LARGE), and the animals Similarity links; every answer against numpy
+    or the host algebra; count_matches, explain, the result cache across a
+    commit (SMALL), a whole-tree dispatch queued behind a sleep kernel, and
+    get_links through the device probes against MemoryDB's host scan.
+    Counters zeroed just before each family, read just after."""
+    import torch
+
+    from das_tpu_torch.api.atomspace import DistributedAtomSpace
+    from das_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from das_tpu_torch.models.animals import animals_metta
+    from das_tpu_torch.query import compiler, fused, plan, tree
+    from das_tpu_torch.query.ast import And, Link, Node, Or, Variable
+    from das_tpu_torch.storage.atom_table import load_metta_text
+    from das_tpu_torch.storage.memory_db import MemoryDB
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(TPU_KERNELS, 0)
+    row = das.db.fin.row_of_hex.__getitem__
+    fams = tree_families(host, das, data, genes, args.seed)
+    # the grounded Member term against the whole unordered template, on
+    # LARGE: its O x U join is a cross product (the reference's composite
+    # join), |members(p)| x 15,000 pairs here; at FlyBase shape 133 x
+    # 150,000 rows would pass max_result_capacity
+    ldas, ldata, lgenes = large
+    lhost = HostKB(ldata, lgenes)
+    lrow = ldas.db.fin.row_of_hex.__getitem__
+    lprocs = sorted(set(lhost.member[:, 1].tolist()))[:16]
+    lname = {p: ldata.nodes[lhost.fin.hex_of_row[p]].name for p in lprocs}
+    fams["unordered_member"] = [
+        (And([Link("Member", [Variable("V1"), Node("BiologicalProcess", lname[p])], True),
+              unordered_template()]),
+         {(frozenset({("V1", m)}), (frozenset({m, x}),))
+          for m in set(lhost.members(p).tolist()) for x in set(lhost.partners(m).tolist())},
+         False)
+        for p in lprocs]
+    fused_families = ("or2", "or3", "or_not")
+    lines = {}
+    torch.cuda.synchronize()
+    for name, cases in fams.items():
+        target, key = (ldas, lrow) if name == "unordered_member" else (das, row)
+        compiler.reset_route_counts()
+        reset_launch_counts()
+        f0 = fused.FETCH_COUNTS["n"]
+        times = []
+        answers = 0
+        with TreeRounds() as rounds, DispatchRounds() as conj:
+            for q, want, negation in cases:
+                t0 = time.perf_counter()
+                matched, neg, got = tree_answer(target, q, key)
+                times.append((time.perf_counter() - t0) * 1e3)
+                if got != want or neg != negation or matched != bool(want or negation):
+                    raise AssertionError(f"tree family {name}: an answer differs from numpy "
+                                         f"({len(got)} rows, numpy {len(want)})")
+                answers += len(got)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCH_COUNTS)
+        routes = dict(compiler.ROUTE_COUNTS)
+        fetches = fused.FETCH_COUNTS["n"] - f0
+        for k in total:
+            total[k] += launches[k]
+        if routes["host"] or routes["tree"] != len(cases):
+            raise AssertionError(f"tree family {name} left the tree route: {routes}")
+        if name in fused_families:
+            if routes["fused_tree"] != len(cases) or fetches != rounds.n:
+                raise AssertionError(f"tree family {name}: {routes['fused_tree']} fused_tree "
+                                     f"answers, {fetches} fetches for {rounds.n} rounds")
+        elif routes["fused_tree"]:
+            raise AssertionError(f"tree family {name} took the whole-tree job")
+        for q, want, _neg in cases:
+            if compiler.count_matches(target.db, q) != len(want):
+                raise AssertionError(f"tree family {name}: count_matches differs from numpy")
+        lines[name] = {
+            "queries": len(cases), "answers": answers, "p50_ms": _p50(times),
+            "p90_ms": sorted(times)[int(len(times) * 0.9)], "host_fetches": fetches,
+            "tree_rounds": rounds.n, "conj_rounds": sum(conj.rounds.values()),
+            "routes": {k: v for k, v in routes.items() if v},
+            "launches": {k: launches[k] for k in TPU_KERNELS},
+        }
+
+    # -- a repeated family is a cache hit: no launch, no fetch ------------------
+    repeats = {}
+    for name in ("or2", "or_mixed"):
+        reset_launch_counts()
+        f0 = fused.FETCH_COUNTS["n"]
+        for q, want, _neg in fams[name]:
+            if tree_answer(das, q, row)[2] != want:
+                raise AssertionError(f"repeated tree family {name} differs from numpy")
+        torch.cuda.synchronize()
+        repeats[name] = {"launches": sum(LAUNCH_COUNTS.values()),
+                         "host_fetches": fused.FETCH_COUNTS["n"] - f0}
+        if repeats[name]["launches"] or repeats[name]["host_fetches"]:
+            raise AssertionError(f"repeated tree family {name} was no cache hit: {repeats[name]}")
+
+    # -- explain of the fused, the staged and the unordered shape --------------
+    explained = {}
+    for name, route in (("or2", "fused_tree"), ("or_mixed", "tree"), ("unordered", "tree")):
+        q, want, _neg = fams[name][0]
+        plan_only = das.explain(q)
+        run = das.explain(q, execute=True)
+        if plan_only["route"] != route or run["route"] != route:
+            raise AssertionError(f"explain({name}) routes {plan_only['route']}, not {route}")
+        if route == "fused_tree":
+            counts = [run["actual"]["count"]]
+            if counts != [len(want)]:
+                raise AssertionError(f"explain({name}, execute=True) counted {counts[0]}, "
+                                     f"numpy {len(want)}")
+        else:
+            counts = [s["actual"]["count"] for s in run["sites"]]
+            # or_mixed's one conjunction site is its chain; the unordered
+            # shape has none
+            want_sites = ([len([s for s in want if "V3" in dict(s)])]
+                          if name == "or_mixed" else [])
+            if counts != want_sites:
+                raise AssertionError(f"explain({name}, execute=True) site counts {counts}, "
+                                     f"numpy {want_sites}")
+        explained[name] = {"route": run["route"], "planned": run["planned"], "counts": counts}
+
+    # -- the whole-tree dispatch does not wait for the card ---------------------
+    q, want, _neg = fams["or3"][1]
+    pos_sites, neg_plans, _const = tree.tree_fusion_sites(plan.build_plan(das.db, q))
+    job = fused.get_executor(das.db).tree_exec_job(pos_sites, neg_plans)
+    held = []
+    reset_launch_counts()
+    dispatch_host_ms, dispatch_card_ms = queued_host_ms(
+        lambda: held.append(job.dispatch()), cycles=1_000_000_000)
+    for k in total:
+        total[k] += LAUNCH_COUNTS[k]
+    if dispatch_host_ms * 10 > dispatch_card_ms:
+        raise AssertionError(f"the tree job's dispatch waited on the card: "
+                             f"{dispatch_host_ms} ms of {dispatch_card_ms}")
+    out = held[-1]
+    if not job.settle(fused.fetch(*out), out) or job.result is None:
+        raise AssertionError("the queued tree job did not settle in its round")
+    got = {frozenset(zip(job.result.var_names, r))
+           for r in job.result.host_vals[job.result.host_valid].tolist()}
+    if got != want:
+        raise AssertionError("the queued tree job's table differs from numpy")
+
+    # -- animals: the unordered Similarity probes, against the host algebra -----
+    adas = DistributedAtomSpace(backend="tensor", data=load_metta_text(animals_metta()),
+                                device=DEVICE)
+    amem = DistributedAtomSpace(backend="memory", data=load_metta_text(animals_metta()))
+    names = ["human", "monkey", "chimp", "snake", "earthworm", "rhino", "triceratops",
+             "vine", "ent", "mammal"]
+
+    def sim(*targets):
+        return Link("Similarity", list(targets), False)
+
+    animal_qs = [sim(Node("Concept", n), Variable("V1")) for n in names]
+    animal_qs += [And([sim(Variable("V1"), Variable("V2")),
+                       Link("Inheritance", [Variable("V1"), Node("Concept", "mammal")], True)]),
+                  Or([Link("Inheritance", [Variable("V1"), Node("Concept", "plant")], True),
+                      sim(Variable("V1"), Node("Concept", "snake"))])]
+    reset_launch_counts()
+    similar = 0
+    animal_routes = dict.fromkeys(compiler.ROUTE_COUNTS, 0)
+    for q in animal_qs:
+        r0 = dict(compiler.ROUTE_COUNTS)
+        got = tree_answer(adas, q, str)
+        for k, v in compiler.ROUTE_COUNTS.items():
+            animal_routes[k] += v - r0[k]
+        want = tree_answer(amem, q, str)
+        if got != want:
+            raise AssertionError(f"animals: {q} differs from the host algebra")
+        if compiler.count_matches(adas.db, q) != len(want[2]):
+            raise AssertionError(f"animals: count_matches of {q} differs")
+        similar += len(got[2])
+    for k in total:
+        total[k] += LAUNCH_COUNTS[k]
+    if animal_routes["host"] or animal_routes["tree"] != len(animal_qs):
+        raise AssertionError(f"animals left the tree route: {animal_routes}")
+    ordered_similarity = Or([Link("Inheritance", [Variable("V1"), Variable("V2")], True),
+                             Link("Similarity", [Variable("V1"), Variable("V2")], True)])
+    if compiler.count_matches(adas.db, ordered_similarity) is not None:
+        raise AssertionError("count_matches counted a query the tree planner cannot plan")
+
+    # -- SMALL: a cached tree answer and a commit -------------------------------
+    sdas = DistributedAtomSpace(backend="tensor", data=build_kb(SMALL, args.seed)[0],
+                                device=DEVICE)
+    smem = DistributedAtomSpace(backend="memory", data=build_kb(SMALL, args.seed)[0])
+    sg = sdas.db.get_all_nodes("Gene", names=True)[:2]
+    sq = [Or([chain_query(sg[0]), chain_query(sg[1])]),
+          Or([chain_query(sg[0]), Link("Interacts", [Node("Gene", sg[1]), Variable("V5")],
+                                       True)])]
+    sbefore = [tree_answer(sdas, q, str) for q in sq]
+    proc = sdas.db.get_link_targets(sdas.get_links("Member", targets=[
+        sdas.db.get_node_handle("Gene", sg[0]), "*"])[0])[1]
+    pname = sdas.db.get_node_name(proc)
+    text = (f'(: "GENE:tree" Gene)\n(: "{sg[1]}" Gene)\n(: "{pname}" BiologicalProcess)\n'
+            f'(Member "GENE:tree" "{pname}")\n(Interacts "{sg[1]}" "GENE:tree")\n')
+    inval0 = fused.result_cache_stats(sdas.db)["invalidations"]
+    sdas.load_metta_text(text)
+    smem.load_metta_text(text)
+    safter = [tree_answer(sdas, q, str) for q in sq]
+    if safter != [tree_answer(smem, q, str) for q in sq]:
+        raise AssertionError("SMALL: a tree answer after the commit differs from the host algebra")
+    if any(a == b for a, b in zip(safter, sbefore)):
+        raise AssertionError("SMALL: a tree answer did not change with the commit (stale)")
+    if fused.result_cache_stats(sdas.db)["invalidations"] <= inval0:
+        raise AssertionError("SMALL: the commit invalidated no tree cache entry")
+
+    # -- get_links through the device probes against MemoryDB's host scan -------
+    reads = pick_genes(host, [data.nodes[h].name for h in genes], args.seed + 13, n=8,
+                       n_nonempty=4)
+    device_ms, scan_ms = [], []
+    for name in reads:
+        gh = das.db.get_node_handle("Gene", name)
+        t0 = time.perf_counter()
+        handles = das.get_links("Member", targets=[gh, "*"])
+        device_ms.append((time.perf_counter() - t0) * 1e3)
+        got = das.db.get_matched_links("Member", [gh, "*"])
+        t0 = time.perf_counter()
+        scanned = MemoryDB.get_matched_links(das.db, "Member", [gh, "*"])
+        scan_ms.append((time.perf_counter() - t0) * 1e3)
+        if sorted(got) != sorted(scanned) or sorted(handles) != sorted(h for h, _ in scanned):
+            raise AssertionError(f"get_links(Member, [{name}, *]) differs from the host scan")
+    emit({"phase": "tree", "card": smi, "families": lines, "repeats": repeats,
+          "explain": explained,
+          "queued_dispatch": {"host_ms": dispatch_host_ms, "card_ms": dispatch_card_ms},
+          "animals": {"queries": len(animal_qs), "answers": similar, "routes": {
+              k: v for k, v in animal_routes.items() if v}},
+          "small_commit": {"answers_before": [len(a[2]) for a in sbefore],
+                           "answers_after": [len(a[2]) for a in safter]},
+          "get_links": {"genes": len(reads), "device_p50_ms": _p50(device_ms),
+                        "host_scan_p50_ms": _p50(scan_ms), "device_ms": device_ms,
+                        "host_scan_ms": scan_ms},
+          "launches": total, "phase_s": time.perf_counter() - t_phase})
+    return total
+
+
+# ---- phase 9 ---------------------------------------------------------------------
+
+
 class CommitRef:
     """The numpy reference of the commit phase, in handle space: the
     pre-commit HostKB plus the Member and Interacts pairs the phase itself
@@ -1718,9 +2079,30 @@ def phase_commit(args, das, data, genes, host, smi, upload_s, slice_p50):
             raise AssertionError("the post-commit grounded star differs from numpy")
         return bool(routed)
 
+    from das_tpu_torch.query.ast import Link, Node, Or, Variable
+    from das_tpu_torch.storage.memory_db import MemoryDB
+
+    def tree_want(g, other):
+        """CommitRef's answer of tree_qs' query on (g, other)."""
+        chain = {frozenset({("V2", m), ("V3", p)}) for p in ref.procs(g)
+                 for m in ref.members(p)}
+        if other is None:
+            return chain | {frozenset({("V5", x)}) for x in ref.partners(g)}
+        return chain | {frozenset({("V2", m), ("V3", p)}) for p in ref.procs(other)
+                        for m in ref.members(p)}
+
+    # tree queries on the first chosen gene, whose answers the first commit
+    # changes: a whole-tree job and a staged tree, cached before the commit
+    tree_qs = [(Or([chain_query(chosen[0]), chain_query(chosen[1])]), chosen_h[1]),
+               (Or([chain_query(chosen[0]),
+                    Link("Interacts", [Node("Gene", chosen[0]), Variable("V5")], True)]), None)]
+
     torch.cuda.synchronize()
     compiler.reset_route_counts()
     reset_launch_counts()
+    tree_before = [tree_answer(das, q, str)[2] for q, _ in tree_qs]
+    if tree_before != [tree_want(chosen_h[0], o) for _, o in tree_qs]:
+        raise AssertionError("a pre-commit tree answer differs from numpy")
     # the serving batch, answered and cached on the pre-commit store
     before = das.query_many(batch)
     c0 = result_cache_stats(db)
@@ -1749,6 +2131,19 @@ def phase_commit(args, das, data, genes, host, smi, upload_s, slice_p50):
             if changed < 16:
                 raise AssertionError(f"the first commit changed {changed} serving answers")
             cache["changed_answers"] = changed
+            # the cached tree answers are stale now: both answer anew
+            tree_after = [tree_answer(das, q, str)[2] for q, _ in tree_qs]
+            if (tree_after != [tree_want(chosen_h[0], o) for _, o in tree_qs]
+                    or any(a == b for a, b in zip(tree_after, tree_before))):
+                raise AssertionError("a tree answer after the commit is stale or differs")
+            # get_links through the device probes against the host scan of
+            # the same committed store, new genes and touched ones
+            for g in new_h[:4] + partners[:4]:
+                got = db.get_matched_links("Member", [g, "*"])
+                if not got or sorted(got) != sorted(
+                        MemoryDB.get_matched_links(db, "Member", [g, "*"])):
+                    raise AssertionError("get_links after the commit differs from the host scan")
+            cache["tree_answers"] = [[len(a) for a in tree_before], [len(a) for a in tree_after]]
         check_answers(new_h[:16] + partners[:16])
         stars_auto += check_star(new_h[0], partners[0])
 
@@ -1941,9 +2336,10 @@ def main(argv=None) -> int:
     launches["multiway"] = phase_planned(das, families)["multiway"]
     phase_count_batch(args, das, data, genes, host)
     api = phase_api(args, das, data, genes, host, families, smi)
+    tree = phase_tree(args, das, data, genes, host, (ldas, ldata, lgenes), smi)
     commit = phase_commit(args, das, data, genes, host, smi, upload_s, slice_p50)
     for name in TPU_KERNELS:
-        launches[name] += api[name] + commit[name]
+        launches[name] += api[name] + tree[name] + commit[name]
 
     kernels_line = []
     for name, (source, replaces) in TPU_KERNELS.items():

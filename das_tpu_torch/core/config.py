@@ -15,8 +15,10 @@ config only (no environment variable):
     (>= 2 clauses), "off" = the binary chain only.  Routed by the planner,
     so `use_planner="off"` turns it off too.
 
-`result_cache_size` bounds the fused executor's answered-result cache
-(0 disables it); `delta_merge_threshold` bounds the atoms incremental
+`use_tree_fusion` ("auto"/"on"/"off") routes an eligible Or tree to one
+whole-tree job; it too is read from the config only.
+`result_cache_size` bounds the fused executor's answered-result cache (0
+disables it); `delta_merge_threshold` bounds the atoms incremental
 commits may add before the store is fully re-finalized."""
 
 from __future__ import annotations
@@ -42,3 +44,9 @@ class DasConfig:
     # shape and grounded values and valid for one `delta_version`; the
     # batched serving path and count_batch consult it.  0 disables it.
     result_cache_size: int = 256
+    # whole-tree fusion (query/tree.py tree_fusion_enabled): an Or/negation
+    # tree whose every branch is an ordered conjunction over one variable
+    # universe runs as ONE tree job with one host fetch a round.  "auto" =
+    # on (ineligible shapes take the staged tree, same answers); "off" =
+    # the staged tree always.
+    use_tree_fusion: str = "auto"

@@ -3,8 +3,8 @@
 
 ROUTE_KEYS names the per-query answer routes the port counts
 (`query/compiler.py ROUTE_COUNTS` is built from it); the planner predicts
-one of them per plan (`PlannedProgram.route`).  A key joins in the slice
-that brings its route.  PLANNER_KEYS is the planner's telemetry
+one of them per plan (`PlannedProgram.route`, `PlannedTree.route`).  A
+key joins in the slice that brings its route.  PLANNER_KEYS is the planner's telemetry
 (`planner.PLANNER_COUNTS` is built from it):
 
   planned / greedy          conjunctions ordered and seeded by the planner
@@ -20,7 +20,9 @@ ROUTE_KEYS = (
     "fused",
     "fused_kernel",
     "fused_multiway",
+    "fused_tree",
     "staged",
+    "tree",
     "count_kernel",
     "host",
 )

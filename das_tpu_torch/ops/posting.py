@@ -48,6 +48,15 @@ def range_probe(sorted_keys, perm, probe_key, capacity: int):
     return local, valid, count
 
 
+def full_scan(size: int, capacity: int, device):
+    """All bucket rows as a padded candidate vector (type-and-targets all
+    wildcard probes).  Returns (local, valid, count int32)."""
+    offs = torch.arange(capacity, dtype=torch.int32, device=device)
+    valid = offs < size
+    count = torch.tensor(size, dtype=torch.int32, device=device)
+    return torch.where(valid, offs, INVALID_ROW), valid, count
+
+
 def verify_positions(targets, type_id, local, valid, probe_type: int,
                      fixed: Tuple[Tuple[int, int], ...]):
     """Keep candidates whose type matches `probe_type` (-1 skips the type
@@ -59,6 +68,34 @@ def verify_positions(targets, type_id, local, valid, probe_type: int,
     for pos, val in fixed:
         mask = mask & (targets[safe, pos] == val)
     return mask
+
+
+def verify_multiset(targets, type_id, local, valid, probe_type: int,
+                    required: Tuple[Tuple[int, int], ...]):
+    """Unordered (Set/Similarity) verification: a candidate must contain
+    each required target row with at least the required multiplicity."""
+    return verify_multiset_traced(
+        targets, type_id, local, valid, probe_type,
+        [v for v, _ in required], [c for _, c in required], len(required),
+    )
+
+
+def verify_multiset_traced(targets, type_id, local, valid, probe_type: int,
+                           pair_vals, pair_cnts, n_pairs: int):
+    """`verify_multiset` with the required (value, multiplicity) pairs as
+    two sequences instead of one tuple of pairs."""
+    safe = torch.clamp(local, 0, targets.shape[0] - 1).long()
+    rows = targets[safe]
+    mask = valid
+    if probe_type >= 0:
+        mask = mask & (type_id[safe] == probe_type)
+    for i in range(n_pairs):
+        mask = mask & ((rows == int(pair_vals[i])).sum(dim=1) >= int(pair_cnts[i]))
+    return mask
+
+
+def count_valid(valid) -> torch.Tensor:
+    return valid.sum(dtype=torch.int32)
 
 
 def dedup_sorted(local, valid):

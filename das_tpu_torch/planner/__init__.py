@@ -17,8 +17,10 @@ starting rung of the overflow-retry ladder.
 `PLANNER_COUNTS` (keys from ops/counters.py PLANNER_KEYS) tracks planned
 vs greedy traffic, retry rounds, and summed estimated vs actual step rows;
 `snapshot()` adds their ratio.  `explain(db, query)` renders one query's
-costed plan, and with execute=True runs it through the executor's
-dispatch/settle halves and reports the actual rows beside the estimates."""
+costed plan — a conjunction's, a whole fused tree's (`plan_tree`) or one
+per conjunction site of a staged tree — and with execute=True runs it
+through the executor's dispatch/settle halves and reports the actual rows
+beside the estimates."""
 
 from __future__ import annotations
 
@@ -73,7 +75,12 @@ def observe_settle(planned, actual_join_rows, rounds: int) -> None:
 
 
 # re-exports: the public planner surface
-from das_tpu_torch.planner.search import PlannedProgram, plan_conjunction  # noqa: E402,F401
+from das_tpu_torch.planner.search import (  # noqa: E402,F401
+    PlannedProgram,
+    PlannedTree,
+    plan_conjunction,
+    plan_tree,
+)
 from das_tpu_torch.planner.stats import (  # noqa: E402,F401
     CardinalityEstimator,
     estimator_for,
@@ -92,9 +99,16 @@ def _term_brief(plan) -> Dict:
     }
 
 
-def _explain_plans(db, plans, execute: bool, compile_report: bool = False) -> Dict:
-    PLANNER_COUNTS["explain"] += 1
-    planned = plan_conjunction(db, list(plans))
+#: sentinel: "no precomputed plan — run plan_conjunction here" (None is a
+#: computed outcome, the planner's decline)
+_UNPLANNED = object()
+
+
+def _explain_plans(db, plans, execute: bool, planned=_UNPLANNED,
+                   compile_report: bool = False) -> Dict:
+    if planned is _UNPLANNED:
+        PLANNER_COUNTS["explain"] += 1
+        planned = plan_conjunction(db, list(plans))
     out: Dict = {
         "route": planned.route if planned is not None else "fused",
         "planner_enabled": enabled(db.config),
@@ -136,26 +150,117 @@ def _explain_plans(db, plans, execute: bool, compile_report: bool = False) -> Di
         "reseed_fallback": bool(getattr(result, "reseed_needed", False)),
     }
     if compile_report:
-        # no program ledger in the port yet: the block the JAX package
-        # gives with its ledger off, keyed by the same digest (the md5 of
-        # the executed signature's repr, folded to 16 hex chars)
-        digest = hashlib.md5(repr((job.plan_sig(), False)).encode()).hexdigest()[:16]
-        out["compile"] = {"enabled": False, "digest": digest, "rows": []}
+        out["compile"] = _compile_block(job.plan_sig())
+    return out
+
+
+def _compile_block(sig) -> Dict:
+    """The explain(compile=True) block.  There is no program ledger in the
+    port: the block the JAX package gives with its ledger off, keyed by the
+    same digest (the md5 of the executed signature's repr, folded to 16 hex
+    chars)."""
+    digest = hashlib.md5(repr((sig, False)).encode()).hexdigest()[:16]
+    return {"enabled": False, "digest": digest, "rows": []}
+
+
+def _site_actual(j) -> Dict:
+    return {
+        "count": j.result.count,
+        "term_rows": list(j.last_ranges or ()),
+        "join_rows": list(j.last_join_rows or ()),
+    }
+
+
+def _explain_tree_fused(db, fusable, execute: bool, compile_report: bool = False) -> Dict:
+    """The whole-tree fused plan: per-site costed conjunction plans, the
+    union/anti placement the tree job hard-codes and per-branch estimated
+    rows — with execute=True, the actual per-site rows, retry rounds and
+    the final count of the ONE tree job."""
+    PLANNER_COUNTS["explain"] += 1
+    pos_sites, neg_plans, _const = fusable
+    pt = plan_tree(db, pos_sites, neg_plans)
+    # per-site detail from the plans plan_tree already computed: one
+    # explain call plans each site once and counts once
+    site_plans = pt.site_plans if pt is not None else tuple(None for _ in pos_sites)
+    out: Dict = {
+        "route": pt.route if pt is not None else "fused_tree",
+        "planned": pt is not None,
+        "tree_fused": True,
+        "planner_enabled": enabled(db.config),
+        "sites": [
+            _explain_plans(db, site, False, planned=sp)
+            for site, sp in zip(pos_sites, site_plans)
+        ],
+        "neg_site": (
+            _explain_plans(db, neg_plans, False,
+                           planned=pt.neg_plan if pt is not None else None)
+            if neg_plans else None
+        ),
+    }
+    if pt is not None:
+        out.update(
+            cost_bytes=pt.cost,
+            est_site_rows=list(pt.est_site_rows),
+            est_union_rows=pt.est_union_rows,
+            # the union (concat + dedup) runs after ALL positive sites; the
+            # anti join (difference) after the union
+            union_after=pt.union_after,
+            anti_after_union=pt.anti_after_union,
+        )
+    if not execute:
+        return out
+    from das_tpu_torch.query.fused import get_executor
+
+    job = get_executor(db).execute_tree(pos_sites, neg_plans)
+    if job is None or job.result is None:
+        out["actual"] = None  # declined: the staged tree answers
+        if compile_report:
+            out["compile"] = None
+        return out
+    if compile_report:
+        out["compile"] = _compile_block(job.tree_sig())
+    out["actual"] = {
+        "count": job.result.count,
+        # single-device counts are exact after the dedup
+        "count_is_upper_bound": False,
+        "matched_any": job.matched_any,
+        "retry_rounds": max(0, job.rounds - 1),
+        "programs": job.rounds,
+        "sites": [_site_actual(j) for j in job.site_jobs],
+        "neg_site": _site_actual(job.neg_job) if job.neg_job is not None else None,
+    }
     return out
 
 
 def explain(db, query, execute: bool = False, compile: bool = False) -> Dict:
-    """What the planner decided for a conjunctive `query`: order, route,
-    estimated rows, capacity seeds; with execute=True also the actual
-    per-stage rows and retry rounds; compile=True (implies execute) adds
-    the `compile` block.  A query outside the compiled conjunctive subset
-    gives route "host", which answers it here (the JAX package reports its
-    device tree executor's sites there; that comes with the tree
-    executor)."""
+    """What the planner decided for `query`: order, route, estimated rows,
+    capacity seeds; with execute=True also the actual per-stage rows and
+    retry rounds; compile=True (implies execute) adds the `compile` block.
+    An Or/negation tree in the fusable subset reports the whole-tree fused
+    plan (site order, union/anti placement, per-branch estimated rows);
+    other trees report one entry per ordered-conjunction site
+    (query/tree.py conj_sites); a query outside the tree executor's
+    language reports route "host"."""
     from das_tpu_torch.query import compiler as qc
 
     execute = execute or compile
     plans = qc.plan_query(db, query)
-    if plans is None:
+    if plans is not None:
+        return _explain_plans(db, plans, execute, compile_report=compile)
+    from das_tpu_torch.query.plan import NotCompilable, build_plan
+    from das_tpu_torch.query.tree import conj_sites, tree_fusion_enabled, tree_fusion_sites
+
+    try:
+        node = build_plan(db, query)
+    except NotCompilable:
         return {"route": "host", "planned": False}
-    return _explain_plans(db, plans, execute, compile_report=compile)
+    fusable = tree_fusion_sites(node)
+    if fusable is not None and tree_fusion_enabled(db.config):
+        return _explain_tree_fused(db, fusable, execute, compile_report=compile)
+    sites = conj_sites(node)
+    return {
+        "route": "tree",
+        "planned": bool(sites),
+        "sites": [_explain_plans(db, site, execute, compile_report=compile)
+                  for site in sites],
+    }

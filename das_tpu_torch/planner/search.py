@@ -13,8 +13,9 @@ the end.
 A star prefix — clauses that each share exactly one variable v with what
 came before — may be fused into one k-way multiway step
 (kernels/multiway.py) when `multiway_mode` allows and the byte model says
-it beats the chain.  The tree planner (`PlannedTree`, `plan_tree`) waits
-for the tree executor."""
+it beats the chain.  `plan_tree` costs a whole Or/negation tree for the
+tree executor's fused form: one plan per conjunction site plus the union
+and anti-join placement (`PlannedTree`)."""
 
 from __future__ import annotations
 
@@ -324,4 +325,91 @@ def plan_conjunction(db, plans) -> Optional[PlannedProgram]:
         method=method,
         cost=float(total),
         multiway=mw,
+    )
+
+
+# ---------------------------------------------------------------------------
+# whole-tree planning: one costed job for an Or/Not tree
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class PlannedTree:
+    """One costed whole-TREE decision (query/tree.py tree_fusion_sites):
+    per-site conjunction plans plus the union/anti placement the tree job
+    hard-codes.
+
+    site_plans     — one Optional[PlannedProgram] per positive Or branch
+                     (None = the site's planner declined; the executor
+                     takes its greedy order for that site and the tree
+                     still fuses)
+    neg_plan       — plan of the joint negative conjunction, when the Or
+                     carries syntactic Not children (de-Morgan branch)
+    est_site_rows  — estimated final rows per positive site, in site order
+    est_union_rows — estimated union size (sum of sites — the dedup can
+                     only shrink it)
+    union_after    — index into the site list after which the union
+                     (concat + dedup) runs; always len(site_plans)
+    anti_after_union — the anti join (negation difference) runs AFTER the
+                     union, against the joint-negative table
+    route          — "fused_tree" (ops/counters.py ROUTE_KEYS)
+    cost           — summed site costs + the union's modeled bytes
+    """
+
+    site_plans: Tuple[Optional[PlannedProgram], ...]
+    neg_plan: Optional[PlannedProgram]
+    est_site_rows: Tuple[int, ...]
+    est_union_rows: int
+    union_after: int
+    anti_after_union: bool
+    route: str
+    cost: float
+
+
+def _site_out_rows(db, plans, planned) -> int:
+    """Estimated FINAL rows of one conjunction site: the last join's
+    estimate when planned, else the largest positive term's exact count."""
+    if planned is not None and planned.est_join_rows:
+        return int(planned.est_join_rows[-1])
+    if planned is not None:
+        return int(planned.est_term_rows[0])
+    est = estimator_for(db)
+    pos = [p for p in plans if not p.negated]
+    if est is None or not pos:
+        return 0
+    return max(est.rows(p) for p in pos)
+
+
+def plan_tree(db, pos_sites, neg_plans=None) -> Optional[PlannedTree]:
+    """Cost a whole Or/negation plan tree: one PlannedProgram per
+    conjunction site (plan_conjunction), the union's size estimate and the
+    union/anti placement.  None when there is nothing to plan.  Counts
+    nothing (explain() calls it too)."""
+    if not pos_sites and not neg_plans:
+        return None
+    site_plans = tuple(plan_conjunction(db, list(site)) for site in pos_sites)
+    neg_plan = plan_conjunction(db, list(neg_plans)) if neg_plans else None
+    site_rows = tuple(
+        _site_out_rows(db, site, planned) for site, planned in zip(pos_sites, site_plans)
+    )
+    union_rows = int(sum(site_rows))
+    out_width = max(
+        (len({v for p in site if not p.negated for v in p.var_names}) for site in pos_sites),
+        default=1,
+    )
+    cost = sum(p.cost for p in site_plans if p is not None)
+    if neg_plan is not None:
+        cost += neg_plan.cost
+    # the union's modeled bytes: one concat + dedup pass over the summed
+    # site windows, priced as materialization
+    cost += float(union_rows) * max(out_width, 1) * pcost.ROW_BYTES
+    return PlannedTree(
+        site_plans=site_plans,
+        neg_plan=neg_plan,
+        est_site_rows=site_rows,
+        est_union_rows=union_rows,
+        union_after=len(site_plans),
+        anti_after_union=neg_plans is not None and bool(neg_plans),
+        route="fused_tree",
+        cost=float(cost),
     )

@@ -13,9 +13,9 @@ syncing a count to the host between stages.
 
 Compilable subset: `And`/bare patterns of *ordered* `Link`s (targets:
 Node | grounded | Variable) and *ordered* `LinkTemplate`s, plus `Not` of
-those.  Everything else (unordered links, `Or`, nesting) goes to the host
-algebra (query/ast.py), which is answer-identical; the device tree
-executor is a later slice."""
+those.  Unordered links, `Or` and nesting go to the tree executor
+(query/tree.py); what even it cannot plan goes to the host algebra
+(query/ast.py), which is answer-identical."""
 
 from __future__ import annotations
 
@@ -44,7 +44,7 @@ from das_tpu_torch.query.ast import (
     Variable,
 )
 from das_tpu_torch.query.fused import fetch, get_executor, trivial_plan_count
-from das_tpu_torch.storage.tensor_db import TensorDB
+from das_tpu_torch.storage.tensor_db import TensorDB, _next_capacity
 
 
 @dataclass
@@ -81,7 +81,9 @@ class UnknownAtom(NotCompilable):
 #: How queries were executed (keys from ops/counters.py ROUTE_KEYS):
 #: "fused" = the fused executor answered, "fused_kernel" = such an answer
 #: from a store on the card (its hand-written kernels ran), "staged" = the
-#: staged pipeline, "host" = the host algebra (counted by `dispatch`);
+#: staged pipeline, "tree" = the tree executor (query/tree.py), of which
+#: "fused_tree" = answered by one whole-tree job (counted at its settle),
+#: "host" = the host algebra (counted by `dispatch`);
 #: "fused_multiway" = a fused answer whose program ran a multiway step
 #: (counted at settle, also for count_matches); "count_kernel" =
 #: count_batch entries whose group ran the hand-written kernels.
@@ -180,17 +182,6 @@ def plan_query(db: TensorDB, query: LogicalExpression) -> Optional[List[TermPlan
     if not plans or all(p.negated for p in plans):
         return None
     return plans
-
-
-def _next_capacity(count: int, current: int, maximum: int) -> int:
-    if count > maximum:
-        raise CapacityOverflowError(
-            f"probe needs {count} rows > max_result_capacity {maximum}"
-        )
-    cap = max(current, 16)
-    while cap < count:
-        cap *= 2
-    return min(cap, maximum)
 
 
 def _run_term(db: TensorDB, plan: TermPlan) -> Optional[BindingTable]:
@@ -372,19 +363,27 @@ def materialize(db: TensorDB, table: Optional[BindingTable],
 def query_on_device(db: TensorDB, query: LogicalExpression,
                     answer: PatternMatchingAnswer) -> Optional[bool]:
     """Compiled execution; None when the query is not compilable (the
-    caller answers on the host algebra)."""
+    caller answers on the host algebra).  Ordered conjunctions take the
+    fused path; everything else in the logical language (Or, unordered
+    links, nested And/Or, negation trees) runs on the tree executor
+    (query/tree.py)."""
     plans = plan_query(db, query)
-    if plans is None:
-        return None
-    table = _execute_fused(db, plans)
-    if table is None:
-        table = execute_plan(db, plans)
-        ROUTE_COUNTS["staged"] += 1
-    else:
-        ROUTE_COUNTS["fused"] += 1
-        if db.device.type == "cuda":
-            ROUTE_COUNTS["fused_kernel"] += 1
-    return materialize(db, table, answer)
+    if plans is not None:
+        table = _execute_fused(db, plans)
+        if table is None:
+            table = execute_plan(db, plans)
+            ROUTE_COUNTS["staged"] += 1
+        else:
+            ROUTE_COUNTS["fused"] += 1
+            if db.device.type == "cuda":
+                ROUTE_COUNTS["fused_kernel"] += 1
+        return materialize(db, table, answer)
+    from das_tpu_torch.query.tree import query_tree
+
+    matched = query_tree(db, query, answer)
+    if matched is not None:
+        ROUTE_COUNTS["tree"] += 1
+    return matched
 
 
 def dispatch(db, query: LogicalExpression, answer: PatternMatchingAnswer) -> bool:
@@ -415,9 +414,10 @@ def explain(db, query: LogicalExpression, execute: bool = False,
 
 
 def count_matches(db: TensorDB, query: LogicalExpression) -> Optional[int]:
-    """Exact match count without materializing the assignments.  None
-    where the JAX package's tree executor declines: a query that is not a
-    compilable conjunction under `assignment.CONFIG["no_overload"]`."""
+    """Exact match count without materializing a conjunction's
+    assignments.  A query outside the conjunctive subset is counted by the
+    tree executor, which materializes (its counts are exact only after the
+    host set's identity); None where the tree executor declines."""
     plans = plan_query(db, query)
     if plans is not None:
         n = trivial_plan_count(db, plans)
@@ -427,8 +427,10 @@ def count_matches(db: TensorDB, query: LogicalExpression) -> Optional[int]:
         if table is None:
             table = execute_plan(db, plans)
         return 0 if table is None else table.count
-    if asn_mod.CONFIG.get("no_overload"):
-        return None
-    answer = PatternMatchingAnswer()
-    return len(answer.assignments) if query.matched(db, answer) else 0
+    from das_tpu_torch.query.tree import query_tree
 
+    answer = PatternMatchingAnswer()
+    matched = query_tree(db, query, answer)
+    if matched is None:
+        return None
+    return len(answer.assignments) if matched else 0

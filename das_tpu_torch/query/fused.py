@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from das_tpu_torch import kernels
+from das_tpu_torch.ops.join import dedup_table
 from das_tpu_torch.ops.posting import search
 from das_tpu_torch.storage.atom_table import host_probe_locals, host_segments
 
@@ -623,7 +624,7 @@ def fetch(*tensors) -> List[np.ndarray]:
 
 
 class ResultCache:
-    """Answered results of the fused executor, valid for one
+    """Answered results of an executor, valid for one
     `delta_version` of the store (storage/delta.py: every commit and every
     rebuild bumps it).
 
@@ -691,9 +692,10 @@ class ResultCache:
         store committed to between dispatch and settle must not get a
         result of the old store cached under the new version."""
         limit = self.limit()
-        if limit <= 0 or result is None or result.reseed_needed:
+        if limit <= 0 or result is None or getattr(result, "reseed_needed", False):
             return
-        if result.vals is not None and result.vals.numel() > self.MAX_ENTRY_ROWS:
+        vals = getattr(result, "vals", None)
+        if vals is not None and vals.numel() > self.MAX_ENTRY_ROWS:
             return
         with self._lock:
             self._sync_version()
@@ -711,13 +713,15 @@ class ResultCache:
 
 def result_cache_stats(db) -> Dict[str, int]:
     """Hit, miss and invalidation counters of the store's live executor
-    cache (zeros when no executor exists yet)."""
+    caches, the conjunctive results' and the tree's, summed (zeros when no
+    executor exists yet)."""
     out = {"hits": 0, "misses": 0, "invalidations": 0}
     dev = getattr(db, "dev", None)
     ex = getattr(dev, "_fused_executor", None) if dev is not None else None
     if ex is not None:
-        for k in out:
-            out[k] += ex.results.stats[k]
+        for cache in (ex.results, ex.tree_results):
+            for k in out:
+                out[k] += cache.stats[k]
     return out
 
 
@@ -756,6 +760,9 @@ class _ExecJob:
         self.names = fold_join_meta(sigs)[2]
         #: set by the settle that finishes the job; None at the ceiling
         self.result: Optional[FusedResult] = None
+        #: per-answer route telemetry at settle; a tree job's site jobs are
+        #: silent (the tree job counts its one fused_tree answer)
+        self.count_route = True
 
     def plan_sig(self) -> FusedPlanSig:
         return FusedPlanSig(self.sigs, self.term_caps, self.join_caps, self.index_joins,
@@ -815,7 +822,7 @@ class _ExecJob:
             host_vals=host_vals, host_valid=host_valid, multiway=bool(self.multiway),
             stats=stats, rounds=self.rounds,
         )
-        if self.multiway:
+        if self.multiway and self.count_route:
             ROUTE_COUNTS["fused_multiway"] += 1
         return True
 
@@ -911,6 +918,235 @@ def settle_pending(results_cache, pending) -> List:
     return pending.results
 
 
+# ---- whole-tree fusion: one tree job for an Or/negation tree ------------------
+
+
+def conj_stats_len(n_terms: int, n_steps: int) -> int:
+    """Length of one conjunction's stats block inside a whole-tree stats
+    vector: [count, reseed, any_pos_empty, *term_ranges, *join_counts]."""
+    return 3 + n_terms + n_steps
+
+
+def canonical_tree_names(terms) -> Tuple[str, ...]:
+    """Canonical output layout of a whole-tree job: the site's bound
+    variables in SORTED name order — the column order the staged tree's
+    union projects to (query/tree.py _canonicalize), so dedup and anti-join
+    row equality match the host assignment-set identity exactly."""
+    return tuple(sorted(fold_join_meta(terms)[2]))
+
+
+@dataclass(frozen=True)
+class FusedTreeSig:
+    """Shape-static description of ONE whole-tree job: every positive Or
+    branch as a full per-site plan signature, plus the joint negative
+    conjunction of the de-Morgan difference branch.  The nested
+    FusedPlanSigs carry the per-site capacities and routing, so the tree
+    signature changes whenever one of them does."""
+
+    sites: Tuple[FusedPlanSig, ...]
+    neg: Optional[FusedPlanSig] = None
+
+
+def _take_cols(vals: torch.Tensor, cols: Tuple[int, ...]) -> torch.Tensor:
+    """`vals[:, cols]` as device ops only (no index tensor is copied from
+    the host, which would wait for the stream)."""
+    if tuple(cols) == tuple(range(vals.shape[1])):
+        return vals
+    return torch.stack([vals[:, c] for c in cols], dim=1)
+
+
+def build_fused_tree(sig: FusedTreeSig):
+    """The whole Or/negation plan tree as ONE function of eager launches
+    (the JAX package's one jitted program): every conjunction site runs
+    `run_conj`, the positive branches are projected onto the canonical
+    sorted-name columns and concatenated, then either deduplicated (the
+    union) or, with a negative branch, the joint negative table is
+    anti-joined against the raw concat on ALL columns (the de-Morgan
+    difference; duplicates in a membership set are harmless).  Nothing
+    here waits for the card.
+
+    Returns (fn, names).  fn(*site_inputs) takes one (bucket_arrays, keys,
+    fixed_vals) triple per positive site, then one for the negative site
+    when sig.neg is set, and returns (vals, valid, stats), where stats is
+    the int64 vector
+      [final_count, *site_0_block, ..., *neg_block]
+    with each block [count, reseed, any_pos_empty, *term_ranges,
+    *join_counts] (conj_stats_len per site)."""
+    out_names = canonical_tree_names(sig.sites[0].terms)
+    K = len(out_names)
+    perms = []
+    for ssig in sig.sites + ((sig.neg,) if sig.neg is not None else ()):
+        names = fold_join_meta(ssig.terms)[2]
+        assert tuple(sorted(names)) == out_names, (
+            "tree fusion requires one shared variable universe"
+        )
+        perms.append(tuple(names.index(v) for v in out_names))
+
+    def fn(*site_inputs):
+        blocks = []
+        parts = []
+        for i, ssig in enumerate(sig.sites):
+            ba, ks, fv = site_inputs[i]
+            v, m, sl = run_conj(ssig, ba, ks, fv)
+            blocks.append(sl)
+            parts.append((_take_cols(v, perms[i]), m))
+        union_vals = torch.cat([v for v, _ in parts], dim=0)
+        union_valid = torch.cat([m for _, m in parts], dim=0)
+        if sig.neg is not None:
+            ba, ks, fv = site_inputs[len(sig.sites)]
+            nv, nm, nsl = run_conj(sig.neg, ba, ks, fv)
+            blocks.append(nsl)
+            nv = _take_cols(nv, perms[-1])
+            all_pairs = tuple((c, c) for c in range(K))
+            nm = kernels.anti_join(nv, nm, union_vals, union_valid, all_pairs)
+            out_vals, out_valid = nv, nm
+            count = nm.sum()
+        else:
+            # exact union dedup: every site is an ordered table over one
+            # variable set, so positional row equality over the canonical
+            # columns IS the reference assignment identity
+            out_vals, out_valid, count = dedup_table(union_vals, union_valid)
+        stats = torch.cat([_scalar(count).reshape(1), *blocks])
+        return out_vals, out_valid, stats
+
+    return fn, out_names
+
+
+class _TreeExecJob:
+    """One whole-tree execution's mutable state, split into the
+    dispatch/settle halves like _ExecJob.  It wraps one count-only site
+    _ExecJob per conjunction site: the site jobs own ordering, planner
+    seeds, capacities and the reseed verdict (their settle halves read
+    this job's per-site stats blocks), while THIS job owns the single tree
+    function — one dispatch and one host fetch a round, where the staged
+    tree pays one per site.
+
+    Decline: a site at the capacity ceiling, or any site's reseed verdict,
+    abandons the tree job (result None) and the staged tree answers, with
+    the same answers."""
+
+    __slots__ = ("ex", "site_jobs", "neg_job", "names", "rounds", "result",
+                 "matched_any", "_done")
+
+    def __init__(self, ex, site_jobs, neg_job):
+        self.ex = ex
+        self.site_jobs = site_jobs
+        self.neg_job = neg_job
+        self.names = None
+        self.rounds = 0
+        self.result = None
+        #: the reference Or.matched verdict: any POSITIVE site matched
+        #: (site count > 0), whatever the difference branch leaves
+        self.matched_any = False
+        self._done = set()
+
+    def _all_jobs(self):
+        return self.site_jobs + ([self.neg_job] if self.neg_job is not None else [])
+
+    def tree_sig(self) -> FusedTreeSig:
+        return FusedTreeSig(
+            tuple(j.plan_sig() for j in self.site_jobs),
+            self.neg_job.plan_sig() if self.neg_job is not None else None,
+        )
+
+    def dispatch(self) -> Tuple[torch.Tensor, ...]:
+        """Enqueue the whole tree at every site's current capacities.
+        Nothing here waits for the card.  Returns (vals, valid, stats)."""
+        from das_tpu_torch.planner import PLANNER_COUNTS
+
+        tree_sig = self.tree_sig()
+        cache = self.ex._tree_progs
+        entry = cache.get(tree_sig)
+        if entry is None:
+            entry = build_fused_tree(tree_sig)
+            if len(cache) > 64:
+                cache.clear()  # one entry per capacity rung: keep it bounded
+            cache[tree_sig] = entry
+        fn, self.names = entry
+        self.rounds += 1
+        for j in self._all_jobs():
+            j.rounds += 1
+        if any(j.planned is not None for j in self._all_jobs()):
+            # ONE job carried every planned site this round
+            PLANNER_COUNTS["programs"] += 1
+        return fn(*((j.arrays, j.keys, j.fvals) for j in self._all_jobs()))
+
+    def settle(self, host_out, dev_out) -> bool:
+        """Consume one round's fetched outputs: slice the per-site blocks
+        out of the ONE stats vector and run each site job's own settle
+        verdict on its block.  True = finished (result set, or None for a
+        decline); False = some site's capacities
+        grew — dispatch the whole tree again."""
+        from das_tpu_torch.query.compiler import ROUTE_COUNTS
+
+        host_vals, host_valid, stats = host_out
+        vals, valid, _ = dev_out
+        off = 1
+        grew = False
+        for idx, j in enumerate(self._all_jobs()):
+            blk_len = conj_stats_len(len(j.sigs), len(j.join_caps))
+            blk = stats[off:off + blk_len]
+            off += blk_len
+            if idx in self._done:
+                continue  # its capacities fit earlier; the block is stable
+            if j.settle((blk,), None):
+                if j.result is None:
+                    # capacity ceiling: the staged tree owns the overflow
+                    # policy (exactly the conjunction's decline)
+                    return True
+                self._done.add(idx)
+            else:
+                grew = True
+        if grew:
+            return False
+        if any(j.result.reseed_needed for j in self._all_jobs()):
+            # a site's reseed quirk fired: its answer under reordering is
+            # not the reference's — the staged tree re-runs the whole tree
+            # (its conjunction leaves resolve reseeds on the exact program)
+            return True
+        self.matched_any = any(j.result.count > 0 for j in self.site_jobs)
+        self.result = FusedResult(
+            var_names=self.names, vals=vals, valid=valid, count=int(stats[0]),
+            reseed_needed=False, host_vals=host_vals, host_valid=host_valid,
+            stats=stats, rounds=self.rounds,
+        )
+        ROUTE_COUNTS["fused_tree"] += 1
+        return True
+
+
+def run_tree_job(job: _TreeExecJob) -> _TreeExecJob:
+    """Drive a tree job's dispatch/settle retry loop to the end: ONE host
+    fetch a round."""
+    while True:
+        out = job.dispatch()
+        if job.settle(fetch(*out), out):
+            return job
+
+
+def prepare_tree_job(ex, pos_sites, neg_plans) -> Optional[_TreeExecJob]:
+    """Build one whole-tree job on executor `ex`: one count-only site job
+    per positive Or branch (each takes the whole _exec_job path — planner
+    order and seeds, learned capacities, index-join routing, multiway
+    prefixes), plus one for the joint negative conjunction.  None when ANY
+    site declines (missing bucket, capacity ceiling): the staged tree
+    answers.  Site jobs count no per-answer route; the tree job counts its
+    one fused_tree answer."""
+    site_jobs = []
+    for site in pos_sites:
+        j = ex._exec_job(list(site), True)
+        if j is None:
+            return None
+        j.count_route = False
+        site_jobs.append(j)
+    neg_job = None
+    if neg_plans:
+        neg_job = ex._exec_job(list(neg_plans), True)
+        if neg_job is None:
+            return None
+        neg_job.count_route = False
+    return _TreeExecJob(ex, site_jobs, neg_job)
+
+
 class FusedExecutor:
     """Per-database executor: plan arguments, capacity seeds, the
     overflow-corrected capacities learned per plan shape, and the
@@ -919,6 +1155,13 @@ class FusedExecutor:
     def __init__(self, db):
         self.db = db
         self.results = ResultCache(db)
+        #: the tree executor's cache (query/tree.py): whole evaluated plan
+        #: trees and tree-job answers keyed by plan-tree digest, same
+        #: version guard
+        self.tree_results = ResultCache(db)
+        #: FusedTreeSig -> (fn, names) of build_fused_tree, bounded in
+        #: _TreeExecJob.dispatch
+        self._tree_progs: Dict[Tuple, Tuple] = {}
         #: count-batch work: groups run, lanes computed after dedup, members,
         #: and the groups of them that ran the exact second pass
         self.batch_counts = {"groups": 0, "lanes": 0, "members": 0, "exact_groups": 0}
@@ -1166,6 +1409,22 @@ class FusedExecutor:
             reseed_needed=False, host_vals=host_vals, host_valid=host_valid,
             stats=stats, rounds=rounds,
         )
+
+    # -- whole-tree jobs ---------------------------------------------------------
+
+    def tree_exec_job(self, pos_sites, neg_plans=None) -> Optional["_TreeExecJob"]:
+        """Prepare one whole-tree execution (see prepare_tree_job)."""
+        return prepare_tree_job(self, pos_sites, neg_plans)
+
+    def execute_tree(self, pos_sites, neg_plans=None) -> Optional["_TreeExecJob"]:
+        """Run a whole Or/negation tree as ONE tree job (retry loop
+        included).  Returns the settled job — result None means the staged
+        tree must answer (a reseed verdict or the capacity ceiling) — or
+        None when no job could form."""
+        job = self.tree_exec_job(pos_sites, neg_plans)
+        if job is None:
+            return None
+        return run_tree_job(job)
 
     # -- batched counting ------------------------------------------------------
 

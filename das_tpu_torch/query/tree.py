@@ -1,0 +1,1011 @@
+"""Staged device execution of generalized query plans (port of
+`das_tpu/query/tree.py`, single device).
+
+Evaluates And/Or/Not trees over ordered AND unordered patterns with the
+candidate probes, term tables, joins, unions and negation filters all on
+the device; the host orchestrates node boundaries (counts drive capacity
+retries and the reference's empty-accumulator reseed quirk) and converts
+surviving rows to assignment objects only at the API boundary.
+
+Intermediate results are *disjunctions of composite tables* (`CTable`):
+each table has ordered variable columns plus sorted value blocks for
+unordered constraints, grouped by (kind, variable structure) — mirroring
+how a reference answer set mixes OrderedAssignment / UnorderedAssignment /
+CompositeAssignment objects with heterogeneous variable sets.  The join
+condition matrix reproduces the Assignment.join dispatch exactly; see
+join_ctables.  Joins and negation filters of tables go to the
+hand-written sort-merge and anti-join kernels (`das_tpu_torch.kernels`);
+dedup, unions and the composite predicates are PyTorch, as they are
+lowered `jnp` in the JAX package.
+
+Final set identity is established on the host: rows become reference
+assignment objects added to a Python set, so dedup semantics (hash
+equality) match the reference even where the device-side canonical dedup
+is conservative (e.g. same-variable-set constraint permutations).
+
+A tree never writes into a tensor it did not allocate: a cached CTable's
+tensors stay as they were when it was cached.
+
+Whole-tree fusion (`query_tree_fused`, `DasConfig.use_tree_fusion`):
+an Or whose every branch is an ordered conjunction over one variable
+universe runs as ONE tree job (query/fused.py `build_fused_tree`) with one
+host fetch per retry round; every other shape, and every fused decline,
+takes the staged evaluator, with the same answers."""
+
+from __future__ import annotations
+
+import copy
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from das_tpu_torch import kernels
+from das_tpu_torch.core.exceptions import CapacityOverflowError
+from das_tpu_torch.ops import composite as comp_ops
+from das_tpu_torch.ops.join import dedup_table
+from das_tpu_torch.query import assignment as asn_mod
+from das_tpu_torch.query import compiler as qc
+from das_tpu_torch.query.assignment import (
+    CompositeAssignment,
+    OrderedAssignment,
+    UnorderedAssignment,
+)
+from das_tpu_torch.query.ast import PatternMatchingAnswer
+from das_tpu_torch.query.fused import ResultCache, fetch, fetch_many, get_executor
+from das_tpu_torch.query.plan import (
+    NotCompilable,
+    PAnd,
+    PConst,
+    PNot,
+    POr,
+    PTerm,
+    PUTerm,
+    PUTermPlan,
+    PlanNode,
+    build_plan,
+)
+
+
+@dataclass
+class CTable:
+    """One homogeneous group of candidate assignments on the device.
+
+    kind    — "O" (ordered map), "U" (single unordered constraint),
+              "C" (composite: optional ordered map + constraints)
+    onames  — ordered variable names; ocols[i] holds onames[i]'s value
+    ugroups — per unordered constraint: (sorted var names, value columns);
+              each block holds the constraint's k distinct values sorted
+    """
+
+    kind: str
+    onames: Tuple[str, ...]
+    ocols: Tuple[int, ...]
+    ugroups: Tuple[Tuple[Tuple[str, ...], Tuple[int, ...]], ...]
+    vals: torch.Tensor
+    valid: torch.Tensor
+    count: int
+    host_vals: Optional[np.ndarray] = None   # prefetched host copies
+    host_valid: Optional[np.ndarray] = None
+
+    @property
+    def group_key(self):
+        return (self.kind, tuple(sorted(self.onames)),
+                tuple(sorted(n for n, _ in self.ugroups)))
+
+
+@dataclass
+class NodeResult:
+    tables: List[CTable]
+    negation: bool
+    matched: bool
+
+
+def _total(tables: List[CTable]) -> int:
+    return sum(t.count for t in tables)
+
+
+# ---------------------------------------------------------------------------
+# leaf execution
+# ---------------------------------------------------------------------------
+
+def _from_binding_table(bt) -> CTable:
+    return CTable(
+        kind="O",
+        onames=bt.var_names,
+        ocols=tuple(range(len(bt.var_names))),
+        ugroups=(),
+        vals=bt.vals,
+        valid=bt.valid,
+        count=bt.count,
+        host_vals=getattr(bt, "host_vals", None),
+        host_valid=getattr(bt, "host_valid", None),
+    )
+
+
+class TreeOps:
+    """Single-device op layer of the tree evaluator: the leaves, and the
+    table combinators every CTable's (vals, valid) pair goes through.  The
+    joins and the negation filter are the hand-written kernels; dedup and
+    concat are PyTorch."""
+
+    def __init__(self, db):
+        self.db = db
+
+    # -- leaves ------------------------------------------------------------
+
+    def run_term(self, plan) -> Optional[CTable]:
+        bt = qc._run_term(self.db, plan)
+        return None if bt is None else _from_binding_table(bt)
+
+    def run_uterm(self, plan: PUTermPlan) -> Optional[CTable]:
+        db = self.db
+        bucket = db.dev.buckets.get(plan.arity)
+        if bucket is None or bucket.size == 0:
+            return None
+        if plan.ctype is not None:
+            padded = db.probe_ctype_padded(plan.arity, plan.ctype)
+        elif plan.required:
+            padded = db.probe_unordered_padded(plan.arity, plan.type_id, plan.required)
+        else:
+            padded = db.probe_ordered_padded(plan.arity, plan.type_id, ())
+        if padded is None:
+            return None
+        local, mask = padded
+        req_vals = np.asarray([v for v, c in plan.required for _ in range(c)], dtype=np.int32)
+        k = len(plan.var_names)
+        vals, mask = comp_ops.build_uterm_table(
+            bucket.targets_sorted, local, mask, req_vals, int(req_vals.size), k
+        )
+        return _finish_uterm(self, plan, vals, mask)
+
+    def conj(self, plans) -> Optional[CTable]:
+        """Ordered-conjunction fast path (fused, else staged)."""
+        bt = qc._execute_fused(self.db, plans)
+        if bt is None:
+            bt = qc.execute_plan(self.db, plans)
+        if bt is None or bt.count == 0:
+            return None
+        return _from_binding_table(bt)
+
+    # -- table combinators -------------------------------------------------
+
+    def join_tables(self, av, am, bv, bm, pairs, extra, cap):
+        return kernels.join_tables(av, am, bv, bm, pairs, extra, cap)
+
+    def dedup(self, vals, valid):
+        return dedup_table(vals, valid)
+
+    def anti_join(self, av, am, bv, bm, pairs):
+        return kernels.anti_join(av, am, bv, bm, pairs)
+
+    def concat(self, parts):
+        vals = torch.cat([v for v, _ in parts], dim=0)
+        valid = torch.cat([m for _, m in parts], dim=0)
+        return vals, valid
+
+
+def _finish_uterm(ops, plan, vals, mask) -> Optional[CTable]:
+    k = len(plan.var_names)
+    vals, keep, count = ops.dedup(vals, mask)
+    n = int(count)
+    if n == 0:
+        return None
+    return CTable(
+        kind="U",
+        onames=(),
+        ocols=(),
+        ugroups=((tuple(sorted(plan.var_names)), tuple(range(k))),),
+        vals=vals,
+        valid=keep,
+        count=n,
+    )
+
+
+# ---------------------------------------------------------------------------
+# generalized join (the Assignment.join dispatch)
+# ---------------------------------------------------------------------------
+
+def join_ctables(db, a: CTable, b: CTable) -> Optional[CTable]:
+    """Join two candidate groups; `a` plays the accumulated (self) role in
+    the reference's `a.join(b)` dispatch — the condition set is
+    asymmetric for composite x composite (CompositeAssignment.join)."""
+    shared = [v for v in a.onames if v in b.onames]
+    pairs = tuple(
+        (a.ocols[a.onames.index(v)], b.ocols[b.onames.index(v)]) for v in shared
+    )
+    extra_onames = tuple(v for v in b.onames if v not in a.onames)
+    extra_cols = [b.ocols[b.onames.index(v)] for v in extra_onames]
+    for _, cols in b.ugroups:
+        extra_cols.extend(cols)
+    ncols_a = a.vals.shape[1]
+    out_onames = a.onames + extra_onames
+    out_ocols = a.ocols + tuple(ncols_a + i for i in range(len(extra_onames)))
+    b_groups_out = []
+    off = ncols_a + len(extra_onames)
+    for names, cols in b.ugroups:
+        b_groups_out.append((names, tuple(off + i for i in range(len(cols)))))
+        off += len(cols)
+
+    ops = TreeOps(db)
+    cap = max(64, min(max(a.count, 1) * max(b.count, 1),
+                      db.config.initial_result_capacity))
+    while True:
+        vals, valid, total = ops.join_tables(
+            a.vals, a.valid, b.vals, b.valid, pairs, tuple(extra_cols), cap,
+        )
+        t = int(total)
+        if t <= cap:
+            break
+        if cap >= db.config.max_result_capacity:
+            raise CapacityOverflowError(
+                f"join needs {t} rows > max_result_capacity "
+                f"{db.config.max_result_capacity}"
+            )
+        cap = min(max(cap * 2, t), db.config.max_result_capacity)
+
+    om = (out_onames, out_ocols)
+    a_g = list(a.ugroups)
+    b_g = b_groups_out
+    conds = []
+
+    def viability(g):
+        return comp_ops.viability_mask(vals, g[0], g[1], om[0], om[1])
+
+    def strict(g):
+        return comp_ops.contains_ordered_mask(vals, g[0], g[1], om[0], om[1])
+
+    def compat(g1, g2):
+        return comp_ops.compatible_mask(vals, g1[0], g1[1], g2[0], g2[1])
+
+    if a.kind == "O":
+        if b.kind == "U":
+            conds.append(viability(b_g[0]))          # C([u])._add_ordered
+        elif b.kind == "C":
+            for g in b_g:                            # C_b.join(O_a) viability
+                conds.append(viability(g))
+    elif a.kind == "U":
+        if b.kind == "O":
+            conds.append(viability(a_g[0]))          # C([u])._add_ordered
+        elif b.kind == "U":
+            conds.append(compat(a_g[0], b_g[0]))     # C([uA])._add_unordered
+        elif b.kind == "C":
+            if b.onames:                             # C_b._add_unordered(uA)
+                conds.append(strict(a_g[0]))
+            for g in b_g:
+                conds.append(compat(g, a_g[0]))
+    else:  # a.kind == "C"
+        if b.kind == "O":
+            for g in a_g:                            # _add_ordered viability
+                conds.append(viability(g))
+        elif b.kind == "U":
+            if a.onames:                             # _add_unordered strict
+                conds.append(strict(b_g[0]))
+            for g in a_g:
+                conds.append(compat(g, b_g[0]))
+        elif b.kind == "C":
+            if b.onames:                             # om changed: re-check self
+                for g in a_g:
+                    conds.append(viability(g))
+            if out_onames:
+                # _add_unordered re-checks strict contains against the
+                # merged om at join time — b's constraints may have been
+                # kept by the weaker viability disjunction at construction
+                for g in b_g:
+                    conds.append(strict(g))
+            for ga in a_g:
+                for gb in b_g:
+                    conds.append(compat(ga, gb))
+
+    for c in conds:
+        valid = valid & c
+    vals, keep, count = ops.dedup(vals, valid)
+    n = int(count)
+    if n == 0:
+        return None
+    # group order mirrors the reference's append order: the composite whose
+    # join method ran keeps its constraints first (U,C -> b's groups first)
+    if a.kind == "U" and b.kind == "C":
+        out_groups = tuple(b_g) + tuple(a_g)
+    else:
+        out_groups = tuple(a_g) + tuple(b_g)
+    return CTable(
+        kind="O" if not out_groups else "C",
+        onames=out_onames,
+        ocols=out_ocols,
+        ugroups=out_groups,
+        vals=vals,
+        valid=keep,
+        count=n,
+    )
+
+
+# ---------------------------------------------------------------------------
+# union / difference over disjunction groups
+# ---------------------------------------------------------------------------
+
+def _sort_equal_blocks(vals, groups):
+    """Per-row lexicographic ordering of constraint blocks that share the
+    same variable set, so positional row equality matches the reference's
+    order-insensitive composite identity (hash XOR over constraints).
+    Writes into a copy of `vals`, never into `vals` itself."""
+    runs = []
+    i = 0
+    while i < len(groups):
+        j = i
+        while j + 1 < len(groups) and groups[j + 1][0] == groups[i][0]:
+            j += 1
+        if j > i:
+            runs.append([groups[x][1] for x in range(i, j + 1)])
+        i = j + 1
+    if not runs:
+        return vals
+    vals = vals.clone()
+    for run in runs:
+        blocks = [vals[:, list(cols)] for cols in run]
+        # bubble compare-swap network (runs are tiny)
+        for a in range(len(blocks)):
+            for b in range(len(blocks) - 1 - a):
+                x, y = blocks[b], blocks[b + 1]
+                gt = torch.zeros(vals.shape[0], dtype=torch.bool, device=vals.device)
+                eq = torch.ones(vals.shape[0], dtype=torch.bool, device=vals.device)
+                for c in range(x.shape[1]):
+                    gt = gt | (eq & (x[:, c] > y[:, c]))
+                    eq = eq & (x[:, c] == y[:, c])
+                swap = gt[:, None]
+                blocks[b] = torch.where(swap, y, x)
+                blocks[b + 1] = torch.where(swap, x, y)
+        for cols, block in zip(run, blocks):
+            vals[:, list(cols)] = block
+    return vals
+
+
+def _canonicalize(t: CTable) -> CTable:
+    """Project to the canonical column layout: ordered columns in sorted
+    name order, then constraint blocks in sorted group-name order (blocks
+    with identical variable sets additionally sorted per row)."""
+    o_order = sorted(range(len(t.onames)), key=lambda i: t.onames[i])
+    g_order = sorted(range(len(t.ugroups)), key=lambda i: t.ugroups[i][0])
+    idx: List[int] = [t.ocols[i] for i in o_order]
+    onames = tuple(t.onames[i] for i in o_order)
+    groups = []
+    pos = len(idx)
+    for gi in g_order:
+        names, cols = t.ugroups[gi]
+        idx.extend(cols)
+        groups.append((names, tuple(range(pos, pos + len(cols)))))
+        pos += len(cols)
+    if idx == list(range(t.vals.shape[1])):
+        vals = t.vals
+    else:
+        vals = t.vals[:, idx]
+    vals = _sort_equal_blocks(vals, groups)
+    return CTable(t.kind, onames, tuple(range(len(onames))), tuple(groups),
+                  vals, t.valid, t.count)
+
+
+def union_ctables(ops: TreeOps, tables: List[CTable]) -> List[CTable]:
+    """Set-union of candidate groups (the reference's Or union):
+    same-structure groups concatenate and dedup on the device; different
+    structures stay separate groups."""
+    groups: Dict[Tuple, List[CTable]] = {}
+    for t in tables:
+        if t.count == 0:
+            continue
+        groups.setdefault(t.group_key, []).append(_canonicalize(t))
+    out = []
+    for members in groups.values():
+        if len(members) == 1:
+            out.append(members[0])
+            continue
+        vals, valid = ops.concat([(m.vals, m.valid) for m in members])
+        vals, keep, count = ops.dedup(vals, valid)
+        n = int(count)
+        if n == 0:
+            continue
+        m0 = members[0]
+        out.append(CTable(m0.kind, m0.onames, m0.ocols, m0.ugroups, vals, keep, n))
+    return out
+
+
+def difference(ops: TreeOps, tables: List[CTable], minus: List[CTable]) -> List[CTable]:
+    """Exact set difference (the reference Or's de-Morgan branch: joint
+    negative answers minus the positive union — plain equality removal,
+    not covering semantics), by the anti-join kernel on all columns."""
+    minus_by_key: Dict[Tuple, List[CTable]] = {}
+    for m in minus:
+        if m.count:
+            minus_by_key.setdefault(m.group_key, []).append(_canonicalize(m))
+    out = []
+    for t in tables:
+        if t.count == 0:
+            continue
+        tc = _canonicalize(t)
+        valid = tc.valid
+        for m in minus_by_key.get(tc.group_key, []):
+            all_cols = tuple((c, c) for c in range(tc.vals.shape[1]))
+            valid = ops.anti_join(tc.vals, valid, m.vals, m.valid, all_cols)
+        n = int(valid.sum())
+        if n:
+            out.append(CTable(tc.kind, tc.onames, tc.ocols, tc.ugroups, tc.vals, valid, n))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# negation filtering (And forbidden sets)
+# ---------------------------------------------------------------------------
+
+def _excluded_pairs(t: CTable, tabu: CTable):
+    """bool[rowsA, rowsT] — pred(a, t) per the check_negation dispatch;
+    None when the tabu can statically never exclude this group."""
+    va, vt = t.vals, tabu.vals
+    if t.kind == "O":
+        if tabu.kind == "O":
+            return comp_ops.pair_ordered_covers(
+                va, t.onames, t.ocols, vt, tabu.onames, tabu.ocols
+            )
+        if tabu.kind == "U":
+            names, cols = tabu.ugroups[0]
+            return comp_ops.pair_u_covered_by_ordered(
+                va, t.onames, t.ocols, vt, names, cols
+            )
+        parts = []  # tabu composite: om sub-map AND every constraint covered
+        if tabu.onames:
+            p = comp_ops.pair_ordered_covers(
+                va, t.onames, t.ocols, vt, tabu.onames, tabu.ocols
+            )
+            if p is None:
+                return None
+            parts.append(p)
+        for names, cols in tabu.ugroups:
+            p = comp_ops.pair_u_covered_by_ordered(
+                va, t.onames, t.ocols, vt, names, cols
+            )
+            if p is None:
+                return None
+            parts.append(p)
+        out = parts[0]
+        for p in parts[1:]:
+            out = out & p
+        return out
+    if t.kind == "U":
+        names, cols = t.ugroups[0]
+        if tabu.kind == "O":
+            return comp_ops.pair_u_contains_ordered(
+                va, names, cols, vt, tabu.onames, tabu.ocols
+            )
+        if tabu.kind == "U":
+            tn, tc = tabu.ugroups[0]
+            return comp_ops.pair_u_contains_unordered(va, names, cols, vt, tn, tc)
+        out = None  # tabu composite: excluded iff SOME constraint contained
+        for tn, tc in tabu.ugroups:
+            p = comp_ops.pair_u_contains_unordered(va, names, cols, vt, tn, tc)
+            if p is not None:
+                out = p if out is None else (out | p)
+        return out
+    # t composite: the ordered part is IGNORED by the reference dispatch
+    # (CompositeAssignment.check_negation)
+    out = None
+    for names, cols in t.ugroups:
+        if tabu.kind == "O":
+            p = comp_ops.pair_u_contains_ordered(
+                va, names, cols, vt, tabu.onames, tabu.ocols
+            )
+        elif tabu.kind == "U":
+            tn, tc = tabu.ugroups[0]
+            p = comp_ops.pair_u_contains_unordered(va, names, cols, vt, tn, tc)
+        else:
+            p = None  # AND over tabu constraints
+            ok = True
+            for tn, tc in tabu.ugroups:
+                q = comp_ops.pair_u_contains_unordered(va, names, cols, vt, tn, tc)
+                if q is None:
+                    ok = False
+                    break
+                p = q if p is None else (p & q)
+            if not ok:
+                p = None
+        if p is not None:
+            out = p if out is None else (out | p)
+    return out
+
+
+def apply_forbidden(ops: TreeOps, t: CTable, forbidden: List[CTable]) -> CTable:
+    valid = t.valid
+    for tabu in forbidden:
+        if tabu.count == 0:
+            continue
+        if t.kind == "O" and tabu.kind == "O":
+            if not set(tabu.onames) <= set(t.onames):
+                continue  # NO_COVERING: never excludes
+            pairs = tuple(
+                (t.ocols[t.onames.index(v)], tabu.ocols[tabu.onames.index(v)])
+                for v in tabu.onames
+            )
+            valid = ops.anti_join(t.vals, valid, tabu.vals, tabu.valid, pairs)
+            continue
+        pred = _excluded_pairs(t, tabu)
+        if pred is None:
+            continue
+        excl = (pred & tabu.valid[None, :]).any(dim=1)
+        valid = valid & ~excl
+    n = int(valid.sum())
+    return CTable(t.kind, t.onames, t.ocols, t.ugroups, t.vals, valid, n)
+
+
+# ---------------------------------------------------------------------------
+# plan walkers
+# ---------------------------------------------------------------------------
+
+def _ordered_conj_plans(node: PAnd):
+    """TermPlans when every child is an ordered term (possibly negated or a
+    static True const) — the fused single-query path applies; "fail" for
+    a statically false child; None otherwise."""
+    plans = []
+    for ch in node.children:
+        if isinstance(ch, PConst):
+            if not ch.matched:
+                return "fail"
+            continue
+        if isinstance(ch, PTerm):
+            plans.append(ch.plan)
+        elif isinstance(ch, PNot) and isinstance(ch.child, PTerm):
+            p = copy.copy(ch.child.plan)
+            p.negated = True
+            plans.append(p)
+        else:
+            return None
+    if not plans or all(p.negated for p in plans):
+        return None
+    return plans
+
+
+def conj_sites(node: PlanNode) -> List[List]:
+    """The ordered-conjunction leaf sites of a plan tree — every PAnd
+    whose children compile to one TermPlan list, i.e. exactly the sites
+    the cost planner orders and seeds when the evaluator's `conj()`
+    leaves run.  explain() renders one costed plan per site; mixed And
+    nodes recurse into their children instead."""
+    sites: List[List] = []
+
+    def walk(n: PlanNode) -> None:
+        if isinstance(n, PAnd):
+            plans = _ordered_conj_plans(n)
+            if plans not in (None, "fail"):
+                sites.append(plans)
+                return
+            for ch in n.children:
+                walk(ch)
+        elif isinstance(n, POr):
+            for ch in n.children:
+                walk(ch)
+        elif isinstance(n, PNot):
+            walk(n.child)
+
+    walk(node)
+    return sites
+
+
+# ---------------------------------------------------------------------------
+# whole-tree fusion: one tree job for the homogeneous Or subset
+# ---------------------------------------------------------------------------
+
+
+def tree_fusion_enabled(config) -> bool:
+    """Whole-tree fusion routing from the config (`use_tree_fusion`):
+    off only for "off"/"0"/"false"; "auto" = on — ineligible shapes fall
+    back to the staged tree, with the same answers."""
+    return str(config.use_tree_fusion).lower() not in ("off", "0", "false")
+
+
+def tree_fusion_sites(node: PlanNode):
+    """The homogeneous fusable subset: a POr whose every branch is an
+    ordered conjunction over ONE shared variable universe.  Returns
+    (pos_sites, neg_plans, const_matched) — per-branch TermPlan lists, the
+    joint negative conjunction's plans (the de-Morgan difference branch),
+    and whether a statically matched PConst branch forces the Or verdict —
+    or None when the tree is outside the subset (unordered/composite
+    shapes, mixed And nodes, heterogeneous variable sets): the staged tree
+    keeps those, with the same answers.
+
+    Nested positive-only POr children flatten (a union of unions is the
+    same set); nested negation stays with the staged tree — its
+    difference runs against the INNER union, not the root's."""
+    if not isinstance(node, POr):
+        return None
+    pos_sites: List[List] = []
+    neg_children: List[PlanNode] = []
+    const_matched = False
+
+    def flatten(n: POr, root: bool) -> bool:
+        nonlocal const_matched
+        for ch in n.children:
+            if isinstance(ch, PNot):
+                if not root:
+                    return False
+                neg_children.append(ch.child)
+            elif isinstance(ch, PConst):
+                if ch.matched:
+                    const_matched = True
+            elif isinstance(ch, PTerm):
+                pos_sites.append([ch.plan])
+            elif isinstance(ch, PAnd):
+                plans = _ordered_conj_plans(ch)
+                if plans == "fail":
+                    continue  # statically unmatched branch: no rows
+                if plans is None:
+                    return False
+                pos_sites.append(plans)
+            elif isinstance(ch, POr):
+                if not flatten(ch, False):
+                    return False
+            else:
+                return False  # PUTerm etc.: composite shapes stay staged
+        return True
+
+    if not flatten(node, True):
+        return None
+    neg_plans = None
+    if neg_children:
+        # the reference's joint negative is And([n.child, ...]) — PAnd
+        # children nest one level when a Not wraps a whole And.  Flatten
+        # them: joining the groups' ordered tables equals the flattened
+        # conjunction whenever no group-level reseed fires, and every
+        # group-level reseed case raises the flattened program's reseed
+        # flag or the count==0/!same_order verdict — both decline to the
+        # staged tree, which owns the quirk exactly.
+        flat: List[PlanNode] = []
+        for ch in neg_children:
+            if isinstance(ch, PAnd):
+                flat.extend(ch.children)
+            else:
+                flat.append(ch)
+        joint = _ordered_conj_plans(PAnd(flat))
+        if joint in (None, "fail"):
+            # "fail" = a statically false negative: rare and static, the
+            # staged tree handles it
+            return None
+        neg_plans = joint
+    if not pos_sites:
+        return None  # pure-negative Or: one site, nothing to fuse
+    if len(pos_sites) + (1 if neg_plans else 0) < 2:
+        return None  # a single conjunction IS the fused path already
+    universe = {v for p in pos_sites[0] if not p.negated for v in p.var_names}
+    if not universe:
+        return None
+    for site in pos_sites[1:]:
+        if {v for p in site if not p.negated for v in p.var_names} != universe:
+            return None  # heterogeneous var sets: separate CTable groups
+    if neg_plans is not None:
+        if {v for p in neg_plans if not p.negated for v in p.var_names} != universe:
+            return None  # difference only removes within one group key
+    return pos_sites, neg_plans, const_matched
+
+
+class _TreeFusedEntry:
+    """Cached whole-tree fused answer: the FusedResult (host copies
+    fetched with it — a hit issues no launch and no fetch) plus the
+    negation/matched verdicts.  `vals` is exposed so ResultCache.put's
+    size bound applies; reseed_needed is never set (reseed-flagged trees
+    decline before caching)."""
+
+    __slots__ = ("result", "negation", "matched")
+
+    def __init__(self, result, negation, matched):
+        self.result = result
+        self.negation = negation
+        self.matched = matched
+
+    @property
+    def vals(self):
+        return self.result.vals
+
+
+class _TreeFusedDecline:
+    """Cached DECLINE verdict for one tree at one delta version (a per-site
+    reseed fired, or a site hit the capacity ceiling): the next identical
+    query goes straight to the staged tree — whose own `(digest,)` cache
+    then answers with no launch — instead of running and discarding the
+    fused job every time.  A commit can change the verdict, so the attempt
+    re-runs after one."""
+
+    __slots__ = ()
+
+
+_TREE_FUSED_DECLINED = _TreeFusedDecline()
+
+
+def _materialize_fused_tree(db, result, answer: PatternMatchingAnswer) -> bool:
+    """Rows of a settled tree job into reference assignment objects: the
+    result is one ordered table over the canonical variable layout, so it
+    materializes through materialize_tables."""
+    t = CTable(
+        kind="O",
+        onames=result.var_names,
+        ocols=tuple(range(len(result.var_names))),
+        ugroups=(),
+        vals=result.vals,
+        valid=result.valid,
+        count=result.count,
+        host_vals=result.host_vals,
+        host_valid=result.host_valid,
+    )
+    return materialize_tables(db, [t], answer)
+
+
+def query_tree_fused(db, plan: PlanNode, answer: PatternMatchingAnswer,
+                     cache=None) -> Optional[bool]:
+    """Answer an eligible Or/negation plan tree as ONE tree job: every
+    conjunction site plus the union or the anti-join difference settles
+    in one host fetch per retry round, where the staged tree pays one per
+    site.  Returns the matched verdict, or None when the tree is
+    ineligible or the fused attempt declined (capacity ceiling, a per-site
+    reseed verdict) — the caller falls through to the staged tree."""
+    sites = tree_fusion_sites(plan)
+    if sites is None:
+        return None
+    pos_sites, neg_plans, const_matched = sites
+    ex = get_executor(db)
+    key = version = None
+    if cache is not None:
+        digest = _plan_digest(plan)
+        if digest is not None:
+            key = (digest, "tree_fused")
+            hit = cache.get(key)
+            if isinstance(hit, _TreeFusedDecline):
+                return None  # memoized decline: the staged cache answers
+            if hit is not None:
+                answer.negation = hit.negation
+                _materialize_fused_tree(db, hit.result, answer)
+                return hit.matched
+            version = cache.version()
+    job = ex.execute_tree(pos_sites, neg_plans)
+    if job is None or job.result is None:
+        if key is not None:
+            cache.put(key, _TREE_FUSED_DECLINED, version)
+        return None
+    negation = neg_plans is not None
+    matched = const_matched or job.matched_any
+    if key is not None:
+        cache.put(key, _TreeFusedEntry(job.result, negation, matched), version)
+    answer.negation = negation
+    _materialize_fused_tree(db, job.result, answer)
+    return matched
+
+
+# ---------------------------------------------------------------------------
+# tree evaluation (reference control-flow semantics)
+# ---------------------------------------------------------------------------
+
+def eval_plan(db, node: PlanNode) -> NodeResult:
+    if isinstance(node, PConst):
+        return NodeResult([], False, node.matched)
+    if isinstance(node, PTerm):
+        t = TreeOps(db).run_term(node.plan)
+        return NodeResult([t] if t else [], False, t is not None and t.count > 0)
+    if isinstance(node, PUTerm):
+        t = TreeOps(db).run_uterm(node.plan)
+        return NodeResult([t] if t else [], False, t is not None and t.count > 0)
+    if isinstance(node, PNot):
+        r = eval_plan(db, node.child)
+        return NodeResult(r.tables, not r.negation, True)
+    if isinstance(node, POr):
+        return _eval_or(db, node)
+    if isinstance(node, PAnd):
+        return _eval_and(db, node)
+    raise NotCompilable(f"unknown plan node {type(node).__name__}")
+
+
+def _eval_or(db, node: POr) -> NodeResult:
+    if not node.children:
+        return NodeResult([], False, False)
+    union_src: List[CTable] = []
+    or_matched = False
+    negatives: List[PNot] = []
+    for ch in node.children:
+        if isinstance(ch, PNot):
+            negatives.append(ch)  # syntactic Not only
+            continue
+        r = eval_plan(db, ch)
+        if not r.matched:
+            continue
+        or_matched = True
+        # the reference ignores a positive sub-answer's negation flag
+        union_src.extend(r.tables)
+    utables = union_ctables(TreeOps(db), union_src)
+    if negatives:
+        joint = PAnd([n.child for n in negatives])
+        jr = eval_plan(db, joint)
+        return NodeResult(difference(TreeOps(db), jr.tables, utables), True, or_matched)
+    return NodeResult(utables, False, or_matched)
+
+
+def _eval_and(db, node: PAnd) -> NodeResult:
+    if not node.children:
+        return NodeResult([], False, False)
+    plans = _ordered_conj_plans(node)
+    if plans == "fail":
+        return NodeResult([], False, False)
+    if plans is not None:
+        t = TreeOps(db).conj(plans)
+        if t is None or t.count == 0:
+            return NodeResult([], False, False)
+        return NodeResult([t], False, True)
+
+    accumulated: Optional[List[CTable]] = None
+    forbidden: List[CTable] = []
+    for ch in node.children:
+        r = eval_plan(db, ch)
+        if not r.matched:
+            return NodeResult([], False, False)
+        if _total(r.tables) == 0:
+            continue
+        if r.negation:
+            forbidden.extend(r.tables)
+            continue
+        if accumulated is None or _total(accumulated) == 0:
+            # reference reseed quirk: an empty accumulator is replaced by
+            # the next positive term's answers
+            accumulated = r.tables
+        else:
+            joined: List[CTable] = []
+            for ta in accumulated:
+                for tb in r.tables:
+                    j = join_ctables(db, ta, tb)
+                    if j is not None:
+                        joined.append(j)
+            accumulated = union_ctables(TreeOps(db), joined)
+    result: List[CTable] = []
+    for t in accumulated or []:
+        t2 = apply_forbidden(TreeOps(db), t, forbidden)
+        if t2.count:
+            result.append(t2)
+    return NodeResult(result, False, _total(result) > 0)
+
+
+# ---------------------------------------------------------------------------
+# materialization + entry point
+# ---------------------------------------------------------------------------
+
+def _row_to_assignment(t: CTable, row, hexes):
+    if t.kind == "O":
+        a = OrderedAssignment()
+        for name, col in zip(t.onames, t.ocols):
+            if not a.assign(name, hexes[int(row[col])]):
+                return None
+        return a if a.freeze() else None
+    u_objs = []
+    for names, cols in t.ugroups:
+        u = UnorderedAssignment()
+        for name, col in zip(names, cols):
+            if not u.assign(name, hexes[int(row[col])]):
+                return None
+        if not u.freeze():
+            return None
+        u_objs.append(u)
+    if t.kind == "U":
+        return u_objs[0]
+    om = None
+    if t.onames:
+        om = OrderedAssignment()
+        for name, col in zip(t.onames, t.ocols):
+            if not om.assign(name, hexes[int(row[col])]):
+                return None
+        om.freeze()
+    comp = CompositeAssignment(u_objs[0])
+    comp.unordered_mappings = u_objs
+    comp.ordered_mapping = om
+    comp._recompute_hash()
+    return comp
+
+
+def materialize_tables(db, tables: List[CTable], answer: PatternMatchingAnswer) -> bool:
+    hexes = db.fin.hex_of_row
+    for t in tables:
+        if t.host_vals is not None:
+            vals, valid = t.host_vals, t.host_valid
+        else:
+            vals, valid = fetch(t.vals, t.valid)  # one fetch per table
+        for row in vals[valid]:
+            a = _row_to_assignment(t, row, hexes)
+            if a is not None:
+                answer.assignments.add(a)
+    return bool(answer.assignments)
+
+
+# ---------------------------------------------------------------------------
+# composite-table result cache
+# ---------------------------------------------------------------------------
+
+
+class _TreeEntry:
+    """Cached root NodeResult of one evaluated plan tree: the composite
+    tables (host copies prefetched — a hit issues no launch and no fetch)
+    plus the negation/matched verdicts.  reseed_needed/vals are absent so
+    ResultCache.put's guards pass it through; the size bound is enforced
+    when it is built."""
+
+    __slots__ = ("tables", "negation", "matched")
+
+    def __init__(self, tables, negation, matched):
+        self.tables = tables
+        self.negation = negation
+        self.matched = matched
+
+
+def _plan_digest(node: PlanNode):
+    """Stable hashable digest of a plan tree: node structure plus every
+    grounded value (type ids, ctype keys, fixed/required global rows).
+    Global rows are stable within one delta version, and the cache's
+    version guard completes the key."""
+    if isinstance(node, PConst):
+        return ("const", node.matched)
+    if isinstance(node, PTerm):
+        p = node.plan
+        return ("t", p.arity, p.type_id, p.ctype, p.fixed, p.var_names,
+                p.var_cols, p.eq_pairs, p.negated)
+    if isinstance(node, PUTerm):
+        u = node.plan
+        return ("u", u.arity, u.type_id, u.ctype, u.required, u.var_names)
+    if isinstance(node, PNot):
+        return ("not", _plan_digest(node.child))
+    if isinstance(node, (PAnd, POr)):
+        tag = "and" if isinstance(node, PAnd) else "or"
+        return (tag, tuple(_plan_digest(ch) for ch in node.children))
+    return None  # unknown node kind: stay uncached, never mis-key
+
+
+def _tree_entry(r: NodeResult) -> Optional[_TreeEntry]:
+    """A cacheable entry: bounded total width (each entry pins its tables'
+    device tensors), host copies prefetched in ONE fetch so every later
+    hit needs none."""
+    total = sum(t.vals.numel() for t in r.tables)
+    if total > ResultCache.MAX_ENTRY_ROWS:
+        return None
+    need = [t for t in r.tables if t.host_vals is None]
+    if need:
+        fetched = fetch_many([(t.vals, t.valid) for t in need])
+        for t, (hv, hm) in zip(need, fetched):
+            t.host_vals, t.host_valid = hv, hm
+    return _TreeEntry(list(r.tables), r.negation, r.matched)
+
+
+def query_tree(db, query, answer: PatternMatchingAnswer) -> Optional[bool]:
+    """Generalized device execution; None when the query is outside the
+    compilable language (the caller falls back to the host algebra)."""
+    if asn_mod.CONFIG.get("no_overload"):
+        return None
+    try:
+        plan = build_plan(db, query)
+    except NotCompilable:
+        return None
+    # the tree cache lives on the same executor as the conjunctive one, so
+    # a full rebuild (which replaces the executor) drops both
+    cache = get_executor(db).tree_results
+    # whole-tree fusion: the homogeneous Or/negation subset settles as ONE
+    # tree job.  A decline (ineligible shape, capacity ceiling, reseed
+    # verdict) falls through to the staged evaluator below, with the same
+    # answers
+    if tree_fusion_enabled(db.config):
+        matched = query_tree_fused(db, plan, answer, cache)
+        if matched is not None:
+            return matched
+    key = version = None
+    digest = _plan_digest(plan)
+    if digest is not None:
+        key = (digest,)
+        hit = cache.get(key)
+        if hit is not None:
+            answer.negation = hit.negation
+            materialize_tables(db, hit.tables, answer)
+            return hit.matched
+        version = cache.version()
+    r = eval_plan(db, plan)
+    if key is not None:
+        entry = _tree_entry(r)
+        if entry is not None:
+            cache.put(key, entry, version)
+    answer.negation = r.negation
+    materialize_tables(db, r.tables, answer)
+    return r.matched

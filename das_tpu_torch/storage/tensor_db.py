@@ -22,12 +22,16 @@ dispatched before the commit still reads the tables it was planned on."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from das_tpu_torch.core.config import DasConfig
+from das_tpu_torch.core.exceptions import CapacityOverflowError
+from das_tpu_torch.core.hashing import hex_to_i64
+from das_tpu_torch.core.schema import UNORDERED_LINK_TYPES, WILDCARD
+from das_tpu_torch.ops import posting
 from das_tpu_torch.storage.atom_table import AtomSpaceData, Finalized, LinkBucket
 from das_tpu_torch.storage.delta import (
     FULL,
@@ -101,6 +105,19 @@ def _pad_rows(x: np.ndarray, capacity: int, fill) -> np.ndarray:
     return out
 
 
+def _next_capacity(count: int, current: int, maximum: int) -> int:
+    """The capacity after an overflow: doubled from `current` until it
+    holds `count`, at most `maximum` (past it, CapacityOverflowError)."""
+    if count > maximum:
+        raise CapacityOverflowError(
+            f"probe needs {count} rows > max_result_capacity {maximum}"
+        )
+    cap = max(current, 16)
+    while cap < count:
+        cap *= 2
+    return min(cap, maximum)
+
+
 def upload_bucket(b: LinkBucket, device) -> DeviceBucket:
     """Copy every column/index of one finalized bucket to `device`, padded
     to its capacity class (see DeviceBucket)."""
@@ -164,11 +181,13 @@ def _insert_rows(col: torch.Tensor, block: torch.Tensor, n: int) -> torch.Tensor
 
 
 class TensorDB(IncrementalCommitMixin, MemoryDB):
-    """MemoryDB whose finalized columns also live on a torch device.  The
-    DBInterface surface (get_matched_links and friends) is inherited from
-    MemoryDB and answers on the host; compiled conjunctive queries run on
-    the device tables through `.dev`.  `get_incoming` and the commit path
-    come from IncrementalCommitMixin."""
+    """MemoryDB whose finalized columns also live on a torch device.
+    Compiled queries run on the device tables through `.dev`, and the
+    DBInterface probes (`get_matched_links`, `get_matched_type_template`,
+    `get_matched_type`) are answered by range probes of the device's
+    sorted posting columns instead of MemoryDB's host scans.  The rest of
+    the DBInterface surface is MemoryDB's; `get_incoming` and the commit
+    path come from IncrementalCommitMixin."""
 
     def __init__(self, data: Optional[AtomSpaceData] = None,
                  config: Optional[DasConfig] = None, device=None):
@@ -282,3 +301,205 @@ class TensorDB(IncrementalCommitMixin, MemoryDB):
 
     def _row_of(self, handle_hex: str) -> Optional[int]:
         return self.fin.row_of_hex.get(handle_hex)
+
+    # -- device probes (shared with the tree executor) ---------------------
+
+    def probe_ordered_padded(self, arity: int, type_id: Optional[int],
+                             fixed: Tuple[Tuple[int, int], ...]):
+        """Padded device probe with capacity retry: (local, mask) device
+        tensors, or None when the bucket is empty."""
+        db = self.dev.buckets.get(arity)
+        if db is None or db.size == 0:
+            return None
+        cap = min(self.config.initial_result_capacity, max(db.size, 16))
+        while True:
+            local, mask, range_count = self._probe_ordered_padded(db, type_id, fixed, cap)
+            # overflow is judged on the *range* count (the pre-verification
+            # superset): candidates beyond `cap` were never verified
+            if int(range_count) <= cap:
+                return local, mask
+            cap = _next_capacity(int(range_count), cap, self.config.max_result_capacity)
+
+    def probe_ordered(self, arity: int, type_id: Optional[int],
+                      fixed: Tuple[Tuple[int, int], ...]) -> np.ndarray:
+        """Bucket-local rows matching a positional wildcard pattern.
+        `fixed` = ((position, global_target_row), ...).  Returns int32[n]."""
+        padded = self.probe_ordered_padded(arity, type_id, fixed)
+        if padded is None:
+            return np.empty(0, dtype=np.int32)
+        return _selected(*padded)
+
+    def _probe_ordered_padded(self, db: DeviceBucket, type_id, fixed, cap: int):
+        """One padded probe round: (local, verified_mask, range_count)."""
+        if type_id is not None and fixed:
+            p0, v0 = fixed[0]
+            key = (int(type_id) << 32) | int(v0)
+            local, valid, range_count = posting.range_probe(
+                db.key_type_pos[p0], db.order_by_type_pos[p0], key, cap)
+            mask = posting.verify_positions(
+                db.targets, db.type_id, local, valid, -1, tuple(fixed[1:]))
+        elif type_id is not None:
+            local, valid, range_count = posting.range_probe(
+                db.key_type, db.order_by_type, int(type_id), cap)
+            mask = valid
+        elif fixed:
+            p0, v0 = fixed[0]
+            local, valid, range_count = posting.range_probe(
+                db.key_pos[p0], db.order_by_pos[p0], int(v0), cap)
+            mask = posting.verify_positions(
+                db.targets, db.type_id, local, valid, -1, tuple(fixed[1:]))
+        else:
+            local, valid, range_count = posting.full_scan(db.size, cap, db.targets.device)
+            mask = valid
+        return local, mask, range_count
+
+    def probe_unordered_padded(self, arity: int, type_id: Optional[int],
+                               required: Tuple[Tuple[int, int], ...]):
+        """Padded unordered (multiset) probe: (local, mask) device tensors,
+        or None when the bucket is empty.  Candidates contain every
+        required (global_row, count) with multiplicity, at any position:
+        every position is probed for the first required row, the windows
+        are concatenated and deduplicated, then the multiset verified."""
+        db = self.dev.buckets.get(arity)
+        if db is None or db.size == 0:
+            return None
+        if not required:
+            return self.probe_ordered_padded(arity, type_id, ())
+        cap = min(self.config.initial_result_capacity, max(db.size * arity, 16))
+        v0 = int(required[0][0])
+        while True:
+            locals_, valids, counts = [], [], []
+            for p in range(arity):
+                if type_id is not None:
+                    local, valid, range_count = posting.range_probe(
+                        db.key_type_spos[p], db.order_by_type_spos[p],
+                        (int(type_id) << 32) | v0, cap)
+                else:
+                    local, valid, range_count = posting.range_probe(
+                        db.key_pos[p], db.order_by_pos[p], v0, cap)
+                locals_.append(local)
+                valids.append(valid)
+                counts.append(range_count)
+            max_range = int(torch.stack(counts).max())
+            if max_range > cap:
+                cap = _next_capacity(max_range, cap, self.config.max_result_capacity)
+                continue
+            local, keep = posting.dedup_sorted(torch.cat(locals_), torch.cat(valids))
+            mask = posting.verify_multiset(
+                db.targets, db.type_id, local, keep,
+                -1 if type_id is None else int(type_id), tuple(required))
+            return local, mask
+
+    def probe_unordered(self, arity: int, type_id: Optional[int],
+                        required: Tuple[Tuple[int, int], ...]) -> np.ndarray:
+        """Bucket-local rows containing every required (global_row, count)
+        with multiplicity, irrespective of position."""
+        padded = self.probe_unordered_padded(arity, type_id, required)
+        if padded is None:
+            return np.empty(0, dtype=np.int32)
+        return _selected(*padded)
+
+    def probe_ctype_padded(self, arity: int, ctype_i64: int):
+        """Padded template-index probe for one arity bucket."""
+        db = self.dev.buckets.get(arity)
+        if db is None or db.size == 0:
+            return None
+        cap = min(self.config.initial_result_capacity, max(db.size, 16))
+        while True:
+            local, valid, count = posting.range_probe(
+                db.key_ctype, db.order_by_ctype, int(ctype_i64), cap)
+            if int(count) <= cap:
+                return local, valid
+            cap = _next_capacity(int(count), cap, self.config.max_result_capacity)
+
+    def probe_ctype(self, ctype_i64: int) -> Dict[int, np.ndarray]:
+        """Rows per arity whose composite type hash matches (template index)."""
+        out = {}
+        for arity in self.dev.buckets:
+            padded = self.probe_ctype_padded(arity, ctype_i64)
+            if padded is None:
+                continue
+            sel = _selected(*padded)
+            if sel.size:
+                out[arity] = sel
+        return out
+
+    def _materialize(self, arity: int, local_rows: np.ndarray):
+        """Bucket-local rows -> (handle, target hexes); locals past the base
+        bucket's size index the per-commit delta overlay segments."""
+        segments = self.host_bucket_segments(arity)
+        hexes = self.fin.hex_of_row
+        out = []
+        for i in local_rows:
+            j = int(i)
+            for b in segments:
+                if j < b.size:
+                    break
+                j -= b.size
+            row = int(b.rows[j])
+            tg = tuple(hexes[int(t)] if int(t) >= 0 else WILDCARD for t in b.targets[j])
+            out.append((hexes[row], tg))
+        return out
+
+    # -- DBInterface probe overrides ---------------------------------------
+
+    def get_matched_links(self, link_type: str, target_handles: List[str]):
+        if link_type != WILDCARD and WILDCARD not in target_handles:
+            handle = self.get_link_handle(link_type, target_handles)
+            return [handle] if handle in self.data.links else []
+        arity = len(target_handles)
+        black_list = self.data.pattern_black_list
+        if link_type == WILDCARD:
+            type_id = None
+        else:
+            if link_type in black_list:
+                return []  # no pattern index for blacklisted types
+            type_id = self._type_id(link_type)
+            if type_id is None:
+                return []
+        unordered = link_type in UNORDERED_LINK_TYPES and link_type != WILDCARD
+        grounded: List[Tuple[int, int]] = []
+        for p, h in enumerate(target_handles):
+            if h == WILDCARD:
+                continue
+            row = self._row_of(h)
+            if row is None:
+                return []
+            grounded.append((p, row))
+        if unordered:
+            counts: Dict[int, int] = {}
+            for _, row in grounded:
+                counts[row] = counts.get(row, 0) + 1
+            local = self.probe_unordered(arity, type_id, tuple(sorted(counts.items())))
+        else:
+            local = self.probe_ordered(arity, type_id, tuple(grounded))
+        out = self._materialize(arity, local)
+        if type_id is None and black_list:
+            out = [(h, tg) for h, tg in out
+                   if self.data.links[h].named_type not in black_list]
+        return out
+
+    def get_matched_type_template(self, template):
+        template_hash = self._flatten_template_hash(self._hash_template(template))
+        per_arity = self.probe_ctype(int(hex_to_i64(template_hash)))
+        out = []
+        for arity, local in sorted(per_arity.items()):
+            out.extend(self._materialize(arity, local))
+        return out
+
+    def get_matched_type(self, link_type: str):
+        type_id = self._type_id(link_type)
+        if type_id is None:
+            return []
+        out = []
+        for arity in sorted(self.dev.buckets):
+            local = self.probe_ordered(arity, type_id, ())
+            if local.size:
+                out.extend(self._materialize(arity, local))
+        return out
+
+
+def _selected(local: torch.Tensor, mask: torch.Tensor) -> np.ndarray:
+    """The valid entries of a padded probe result, on the host (one fetch
+    of both tensors)."""
+    return local.cpu().numpy()[mask.cpu().numpy()]

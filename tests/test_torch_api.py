@@ -10,9 +10,8 @@ of the executed plan signature's repr, folded to 16 hex chars, but the
 JAX signature carries fields the port's has not (the Pallas route, tiling,
 VMEM budget, planner flag), so the reprs and the digests differ.  A query
 outside the compiled conjunctive subset (an `Or`, or a conjunction
-grounded on an atom the store lacks) gives the port's
-`{"route": "host", "planned": False}`, where das_tpu reports its tree
-executor's sites (the tree executor is not ported).
+grounded on an atom the store lacks) reports the tree executor: the same
+dict as das_tpu's.
 
 The read surface on animals: every getter gives das_tpu's answer in all
 three output formats."""
@@ -106,6 +105,10 @@ def test_explain_execute_matches_das_tpu(bio, name):
 
 
 def test_explain_outside_the_conjunctive_subset(bio):
+    """The tree executor's explain: an Or of grounded Member / Interacts
+    terms is one fused tree job ("fused_tree"), a conjunction on an unknown
+    atom is a tree with no conjunctive site; the dicts equal das_tpu's,
+    planned, executed and with the compile block (but its digest)."""
     jx, pt, genes, procs, partner = bio
 
     def queries(m):
@@ -115,16 +118,25 @@ def test_explain_outside_the_conjunctive_subset(bio):
                 m.And([L("Member", [N("Gene", "no such gene"), V("V3")], True),
                        L("Member", [V("V2"), V("V3")], True)])]
 
-    # das_tpu: the Or as one fused tree program; the unknown atom as a tree
-    # with no conjunctive site (its single-device explain never asks
-    # plan_query for the EMPTY_PLAN sentinel)
-    jx_routes = ["fused_tree", "tree"]
-    for jq, pq, route in zip(queries(jx_ast), queries(ast), jx_routes):
-        e0 = planner.PLANNER_COUNTS["explain"]
-        assert pt.explain(pq, execute=True) == {"route": "host", "planned": False}
-        assert planner.PLANNER_COUNTS["explain"] == e0
-        assert jx.explain(jq, execute=True)["route"] == route
-    assert jx.explain(queries(jx_ast)[1]) == {"route": "tree", "planned": False, "sites": []}
+    # das_tpu's single-device explain never asks plan_query for the
+    # EMPTY_PLAN sentinel, so the unknown atom plans as a tree
+    routes = ["fused_tree", "tree"]
+    for jq, pq, route in zip(queries(jx_ast), queries(ast), routes):
+        for kw in ({}, {"execute": True}, {"compile": True}):
+            e0, je0 = planner.PLANNER_COUNTS["explain"], jx_planner.PLANNER_COUNTS["explain"]
+            want, got = jx.explain(jq, **kw), pt.explain(pq, **kw)
+            assert (planner.PLANNER_COUNTS["explain"] - e0
+                    == jx_planner.PLANNER_COUNTS["explain"] - je0)
+            jc, pc = want.pop("compile", None), got.pop("compile", None)
+            assert (jc is None) == (pc is None) == (route == "tree" or "compile" not in kw)
+            if pc is not None:
+                assert pc["enabled"] is jc["enabled"] is False and pc["rows"] == jc["rows"] == []
+                assert len(pc["digest"]) == len(jc["digest"]) == 16
+            assert got == want
+            assert got["route"] == route
+    assert pt.explain(queries(ast)[1]) == {"route": "tree", "planned": False, "sites": []}
+    executed = pt.explain(queries(ast)[0], execute=True)
+    assert executed["tree_fused"] and executed["actual"]["count"] > 0
 
 
 # -- the read surface ---------------------------------------------------------

@@ -527,3 +527,111 @@ def test_explain_execute_on_card_equals_cpu():
         assert got.pop("route") == route
         assert got == want
         assert got["actual"] is not None
+
+
+def _tree_queries(names):
+    """The tree executor's shapes on the bio KB: Ors of grounded chains over
+    one variable universe (the whole-tree job: a union, 3 branches, a Not
+    branch), an Or over different variable sets and an And over an Or (the
+    staged tree), and an unordered Interacts template joined to a grounded
+    Member term (a U table and a composite join)."""
+    from das_tpu_torch.query.ast import And, Link, LinkTemplate, Node, Not, Or, TypedVariable
+    from das_tpu_torch.query.ast import Variable as V
+
+    def chain(g):
+        return And([Link("Member", [Node("Gene", g), V("V3")], True),
+                    Link("Member", [V("V2"), V("V3")], True)])
+
+    return [
+        Or([chain(names[0]), chain(names[1])]),
+        Or([chain(g) for g in names[:3]]),
+        Or([chain(names[0]), Not(chain(names[1]))]),
+        Or([chain(names[0]), Link("Interacts", [Node("Gene", names[1]), V("V5")], True)]),
+        And([Or([chain(names[0]), chain(names[1])]),
+             Link("Interacts", [Node("Gene", names[0]), V("V2")], True)]),
+        And([Link("Member", [Node("Gene", names[0]), V("V3")], True),
+             LinkTemplate("Interacts", [TypedVariable("V1", "Gene"),
+                                        TypedVariable("V2", "Gene")], False),
+             Link("Member", [V("V1"), V("V3")], True)]),
+    ]
+
+
+@pytest.mark.gpu
+def test_tree_on_card_equals_cpu():
+    """The tree executor on the card (its joins and negation filters on the
+    hand-written kernels) against the same store on the CPU: answers,
+    routes, and each whole-tree job's stats vector and table bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels only run on the GPU")
+    from das_tpu_torch.api.atomspace import DistributedAtomSpace
+    from das_tpu_torch.models.bio import build_bio_atomspace
+    from das_tpu_torch.query import compiler, fused, plan, tree
+
+    data, genes, _ = build_bio_atomspace(seed=5, **SMALL)
+    names = [data.nodes[h].name for h in genes]
+    card = DistributedAtomSpace(backend="tensor", data=data, device="cuda")
+    cpu = DistributedAtomSpace(backend="tensor", data=data, device="cpu")
+    launched = dict(kernels.LAUNCH_COUNTS)
+    fused_jobs = 0
+    for q in _tree_queries(names):
+        routes = []
+        answers = []
+        for das in (card, cpu):
+            r0 = dict(compiler.ROUTE_COUNTS)
+            matched, answer = das.query_answer(q)
+            routes.append({k: compiler.ROUTE_COUNTS[k] - r0[k]
+                           for k in ("tree", "fused_tree", "host")})
+            answers.append((matched, answer.negation, answer.assignments))
+        assert routes[0] == routes[1] and routes[0]["host"] == 0 and routes[0]["tree"] == 1
+        assert answers[0] == answers[1]
+        sites = tree.tree_fusion_sites(plan.build_plan(card.db, q))
+        if sites is None:
+            continue
+        jobs = [fused.get_executor(d.db).execute_tree(sites[0], sites[1]) for d in (card, cpu)]
+        for j in jobs:
+            assert j.result is not None
+        (cv, cm, cs), (pv, pm, ps) = (fused.fetch(*j.dispatch()) for j in jobs)
+        assert cs.tolist() == ps.tolist() and cm.tolist() == pm.tolist()
+        assert cv[cm].tolist() == pv[pm].tolist()
+        fused_jobs += 1
+    assert fused_jobs == 3
+    for name in ("probe", "join_tables", "anti_join"):
+        assert kernels.LAUNCH_COUNTS[name] > launched[name], name
+
+
+@pytest.mark.gpu
+def test_device_probes_on_card_equal_cpu():
+    """The store's probe_*_padded on the card equal the CPU route's, and so
+    do get_links' answers (animals: the unordered Similarity probes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from das_tpu_torch.api.atomspace import DistributedAtomSpace
+    from das_tpu_torch.core.hashing import ExpressionHasher, hex_to_i64
+    from das_tpu_torch.models.animals import animals_metta
+    from das_tpu_torch.storage.atom_table import load_metta_text
+
+    stores = [DistributedAtomSpace(backend="tensor", data=load_metta_text(animals_metta()),
+                                   device=d) for d in ("cuda", "cpu")]
+
+    def probes(das):
+        db = das.db
+        row = {n: db.fin.row_of_hex[db.get_node_handle("Concept", n)]
+               for n in ("human", "mammal", "snake")}
+        inh, sim = db._type_id("Inheritance"), db._type_id("Similarity")
+        table = db.data.table
+        ctype = int(hex_to_i64(ExpressionHasher.composite_hash(
+            [table.get_named_type_hash(t) for t in ("Inheritance", "Concept", "Concept")])))
+        out = [db.probe_ordered_padded(2, inh, ((0, row["human"]),)),
+               db.probe_ordered_padded(2, None, ((1, row["mammal"]),)),
+               db.probe_ordered_padded(2, inh, ()),
+               db.probe_ordered_padded(2, None, ()),
+               db.probe_unordered_padded(2, sim, ((row["human"], 1),)),
+               db.probe_unordered_padded(2, None, ((row["snake"], 1),)),
+               db.probe_ctype_padded(2, ctype)]
+        h = db.get_node_handle("Concept", "human")
+        links = [das.get_links("Similarity", targets=[h, "*"]),
+                 das.get_links("*", targets=["*", db.get_node_handle("Concept", "mammal")]),
+                 das.get_links("Inheritance", target_types=["Concept", "Concept"])]
+        return [(loc.cpu().tolist(), m.cpu().tolist()) for loc, m in out], links
+
+    assert probes(stores[0]) == probes(stores[1])

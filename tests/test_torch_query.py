@@ -89,8 +89,8 @@ ANIMALS = [
     ("And", [_inh(V1, V1)]),                                    # repeated variable
     _inh(V1, _c("unicorn")),                                    # unknown node
     ("LT", "Inheritance", [("T", "V1", "Concept"), ("T", "V2", "Concept")], True),
-    ("And", [("L", "Similarity", [V1, V2], False), _inh(V1, _c("mammal"))]),  # host
-    ("Or", [_inh(V1, _c("plant")), _inh(V1, _c("reptile"))]),                 # host
+    ("And", [("L", "Similarity", [V1, V2], False), _inh(V1, _c("mammal"))]),  # tree
+    ("Or", [_inh(V1, _c("plant")), _inh(V1, _c("reptile"))]),                 # tree
     # reseed: the first join empties the accumulator, the third term
     # re-seeds it (the reference's And quirk)
     ("And", [_inh(V1, _c("mammal")), _inh(V1, _c("reptile")), _inh(V2, _c("plant"))]),
@@ -123,7 +123,8 @@ def test_animals_routes():
     # a fused route, as in das_tpu
     pt.query_answer(_build(ast, ANIMALS[-1]))
     assert compiler.ROUTE_COUNTS == {"fused": 2, "fused_kernel": 0, "fused_multiway": 0,
-                                     "staged": 0, "count_kernel": 0, "host": 1}
+                                     "fused_tree": 0, "staged": 0, "tree": 1,
+                                     "count_kernel": 0, "host": 0}
 
 
 def _grounded(gene, negate=False):
