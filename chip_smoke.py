@@ -107,9 +107,10 @@ Phases, one JSON line each:
                cached tree answer across a commit on SMALL, and get_links
                of 8 genes through the device probes against MemoryDB's
                host scan of the same store, both timed;
-  9. commit  — last, since it changes the store: three transactions of 256
-               new genes (4 Member links into existing processes and 2
-               Interacts links with an existing gene each, 1,792 atoms)
+  9. commit  — after the reads, since it changes the store: three
+               transactions of 256 new genes (4 Member links into existing
+               processes and 2 Interacts links with an existing gene each,
+               1,792 atoms)
                and one of 512 links among existing atoms, through
                open_transaction / commit_transaction.  Each commit must be
                incremental (_delta_total up by its atoms, delta_version up
@@ -128,7 +129,33 @@ Phases, one JSON line each:
                commits until the arity-2 bucket
                grows, a new 3-ary link type and a commit past a small
                delta_merge_threshold (a rebuild), each against the host
-               algebra.
+               algebra;
+ 10. durable — last, since it ends the store: the free disk of a new
+               temporary root, then save_snapshot of the committed store
+               (wall s, each part's s, each section's bytes), two commits
+               of 1,792 atoms with the write-ahead log armed (wall ms beside
+               phase commit's unarmed p50, the WAL's bytes; each commit
+               split into a timed gc.collect() before it, the parse into
+               the host store, the add that frees the host Finalized the
+               snapshot cached, the WAL append and the collector's pauses
+               inside it), the store
+               dropped and DistributedAtomSpace(backend="tensor",
+               config=DasConfig(snapshot_dir=root)) restoring it (wall s
+               and its parts beside phase kb's build_s +
+               finalize_upload_s; 2 records replayed; the dead store's
+               delta_version and _delta_total), and on the restored store
+               phase slice's grounded and Not queries, phase planned's
+               grounded stars and phase tree's or2 family, answers against
+               the dead store's and numpy's (CommitRef), launches per
+               kernel.  On SMALL: attach at construction, two commits, the
+               store dropped and restored with every table bit-equal to
+               the dead store's; half a frame appended to the WAL (cut,
+               never replayed); a newer generation with a damaged records
+               section (the restore falls back to the prior one and its
+               WAL, bit-equal again); and with the planner off, the warm
+               bundle applied at its version (first-pass rounds with it,
+               without it, and after a commit past it, when it is
+               discarded).  The root is removed at the end.
 
 Then a line {"kernels": [...]} with each kernel's route, source, the TPU
 kernel it replaces, launches on the main path, error against the plain
@@ -1205,21 +1232,27 @@ def phase_serving(args, das, data, genes, host, smi, slice_p50):
     return launches
 
 
-def star_families(args, data, genes, host, das):
-    """The planned phase's query families: (query, bound names, numpy
-    answer) per query.  Grounded stars pick p1 and p2 among the processes
-    of one interaction partner of g, so every answer is non-empty."""
+def star_rows(args, host):
+    """(grounded stars as (g, p1, p2) rows, fan-out processes): p1 and p2
+    are two processes of one interaction partner of g, so every grounded
+    star's answer is non-empty."""
     rng = random.Random(args.seed + 1)
-
-    def name(r):
-        return data.nodes[host.fin.hex_of_row[r]].name
-
     stars = []
     for g in rng.sample(sorted(set(host.interacts[:, 0].tolist())), 32):
         x = int(host.partners(g)[0])
         p1, p2 = sorted(host.procs(x).tolist())[:2]
         stars.append((g, p1, p2))
-    fan = rng.sample(sorted(set(host.member[:, 1].tolist())), 8)
+    return stars, rng.sample(sorted(set(host.member[:, 1].tolist())), 8)
+
+
+def star_families(args, data, genes, host, das):
+    """The planned phase's query families: (query, bound names, numpy
+    answer) per query (the stars of star_rows)."""
+
+    def name(r):
+        return data.nodes[host.fin.hex_of_row[r]].name
+
+    stars, fan = star_rows(args, host)
     chosen = pick_genes(host, [data.nodes[h].name for h in genes], args.seed)
     return {
         "grounded_star": [(grounded_star_query(name(g), name(p1), name(p2)), ("V1",),
@@ -1980,8 +2013,8 @@ def check_merged_bucket(b):
 
 def phase_commit(args, das, data, genes, host, smi, upload_s, slice_p50):
     """Incremental commits through open_transaction / commit_transaction on
-    the slice's store (last: it changes the store), then growth, a new
-    arity and a threshold rebuild on SMALL.  Counters zeroed just before,
+    the slice's store (after the reads: it changes the store), then growth,
+    a new arity and a threshold rebuild on SMALL.  Counters zeroed just before,
     read just after."""
     import torch
 
@@ -2278,7 +2311,499 @@ def phase_commit(args, das, data, genes, host, smi, upload_s, slice_p50):
                   "rebuild_delta_version": sdas.db.delta_version},
         "routes": routes, "launches": launches, "phase_s": time.perf_counter() - t_phase,
     })
-    return launches
+    return launches, {"ref": ref, "name_of": name_of, "procs": procs, "with_procs": with_procs,
+                      "commit_ms_p50": _p50(commit_ms[:3])}
+
+
+# ---- phase 10 --------------------------------------------------------------------
+
+
+def host_tables(db):
+    """Host copies of every device table of a store: the CSR, and per
+    bucket its size, capacity, every column, posting key and perm."""
+    from das_tpu_torch.storage.tensor_db import BUCKET_LIST_PADS, BUCKET_PADS
+
+    dev = db.dev
+    out = {name: getattr(dev, name).cpu().numpy()
+           for name in ("node_type_id", "incoming_offsets", "incoming_links")}
+    for arity, b in dev.buckets.items():
+        out[f"b{arity}.shape"] = np.array([b.size, b.capacity])
+        for name, _ in BUCKET_PADS:
+            out[f"b{arity}.{name}"] = getattr(b, name).cpu().numpy()
+        for name, _ in BUCKET_LIST_PADS:
+            for p, t in enumerate(getattr(b, name)):
+                out[f"b{arity}.{name}[{p}]"] = t.cpu().numpy()
+    return out
+
+
+def assert_same_tables(want, got, what):
+    """Raise unless two host_tables are equal bit for bit (dtype, shape,
+    values); returns the number of arrays compared."""
+    if sorted(want) != sorted(got):
+        raise AssertionError(f"{what}: the restored store has other tables")
+    for k, w in want.items():
+        g = got[k]
+        if w.dtype != g.dtype or w.shape != g.shape or not np.array_equal(w, g):
+            raise AssertionError(f"{what}: {k} differs from the dead store's")
+    return len(want)
+
+
+class Timed:
+    """While active, `obj.attr` is wrapped to add each call's wall seconds
+    to `sink[key(args)]` (by default under `attr`)."""
+
+    def __init__(self, sink, obj, attr, key=None):
+        self.sink, self.obj, self.attr = sink, obj, attr
+        self.key = key or (lambda *a: attr)
+
+    def __enter__(self):
+        self._fn = fn = getattr(self.obj, self.attr)
+        self._own = self.attr in vars(self.obj)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            k = self.key(*a)
+            self.sink[k] = self.sink.get(k, 0.0) + time.perf_counter() - t0
+            return out
+
+        setattr(self.obj, self.attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        if self._own:
+            setattr(self.obj, self.attr, self._fn)
+        else:
+            delattr(self.obj, self.attr)
+        return False
+
+
+class FinRelease:
+    """While active, times apart the host-store add that drops
+    `data._fin` (the host Finalized a snapshot's `data.finalize()` leaves
+    cached) into `ms`; None when no add dropped one."""
+
+    def __init__(self, data):
+        self.data = data
+
+    def __enter__(self):
+        self.ms = None
+        for attr in ("add_terminal", "add_link"):
+            fn = getattr(self.data, attr)
+
+            def timed(*a, _fn=fn, **kw):
+                held = self.data._fin is not None
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                if held and self.data._fin is None:
+                    self.ms = (time.perf_counter() - t0) * 1e3
+                return out
+
+            setattr(self.data, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        delattr(self.data, "add_terminal")
+        delattr(self.data, "add_link")
+        return False
+
+
+class GcPauses:
+    """While active, sums the cyclic collector's pauses (gc.callbacks) in
+    `ms` and counts them by generation."""
+
+    def __enter__(self):
+        import gc
+
+        self.ms, self.by_gen, self._t0 = 0.0, {}, None
+        gc.callbacks.append(self._note)
+        return self
+
+    def _note(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.ms += (time.perf_counter() - self._t0) * 1e3
+            gen = str(info["generation"])
+            self.by_gen[gen] = self.by_gen.get(gen, 0) + 1
+            self._t0 = None
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._note)
+        return False
+
+
+class ConjRounds:
+    """While active, counts conjunction rounds (_ExecJob.dispatch calls)."""
+
+    def __enter__(self):
+        from das_tpu_torch.query import fused
+
+        self.n = 0
+        self._fn = fn = fused._ExecJob.dispatch
+
+        def dispatch(job):
+            self.n += 1
+            return fn(job)
+
+        fused._ExecJob.dispatch = dispatch
+        return self
+
+    def __exit__(self, *exc):
+        from das_tpu_torch.query import fused
+
+        fused._ExecJob.dispatch = self._fn
+        return False
+
+
+def durable_families(args, data, host, ref, name_of):
+    """The families the durable phase answers on the restored store, in
+    handle space: {name: [(query, numpy answer)]}: phase slice's 32
+    grounded queries and their Not variants, phase planned's 32 grounded
+    stars, and phase tree's 16 Ors of two grounded chains, each answer
+    from CommitRef (the pre-commit HostKB plus every pair written)."""
+    from das_tpu_torch.query.ast import Or
+
+    def name(h):
+        return name_of.get(h) or data.nodes[h].name
+
+    hexes = host.fin.hex_of_row
+    gene_names = [data.nodes[hexes[r]].name for r in host.gene_rows.tolist()]
+    handle = {data.nodes[hexes[r]].name: hexes[r] for r in host.gene_rows.tolist()}
+    chosen = pick_genes(host, gene_names, args.seed)
+    stars, _fan = star_rows(args, host)
+    picks = pick_genes(host, gene_names, args.seed + 11, n=48, n_nonempty=16)
+
+    def chain(h):
+        return {frozenset({("V2", m), ("V3", p)}) for p in ref.procs(h) for m in ref.members(p)}
+
+    return {
+        "grounded": [(grounded_query(g), ref.grounded(handle[g], False)) for g in chosen],
+        "not": [(grounded_query(g, True), ref.grounded(handle[g], True)) for g in chosen],
+        "grounded_star": [
+            (grounded_star_query(name(hexes[g]), name(hexes[p1]), name(hexes[p2])),
+             ref.grounded_star(hexes[g], hexes[p1], hexes[p2])) for g, p1, p2 in stars],
+        "or2": [(Or([chain_query(picks[i]), chain_query(picks[16 + i])]),
+                 chain(handle[picks[i]]) | chain(handle[picks[16 + i]])) for i in range(16)],
+    }
+
+
+def family_answers(das, families):
+    """{family: [answer in handle space]} and the multiway route's count;
+    a star family that auto routed to no multiway step runs again with the
+    step on."""
+    from das_tpu_torch.query import compiler
+
+    out, routed = {}, 0
+    for fam, queries in families.items():
+        r0 = compiler.ROUTE_COUNTS["fused_multiway"]
+        out[fam] = [tree_answer(das, q, str)[2] for q, _want in queries]
+        if fam == "grounded_star":
+            routed = compiler.ROUTE_COUNTS["fused_multiway"] - r0
+            if not routed:
+                cfg = das.db.config
+                mode, cfg.use_multiway = cfg.use_multiway, "on"
+                try:
+                    out[fam] = [tree_answer(das, q, str)[2] for q, _want in queries]
+                finally:
+                    cfg.use_multiway = mode
+                if compiler.ROUTE_COUNTS["fused_multiway"] == r0:
+                    raise AssertionError("the restored store's stars took no multiway step")
+    return out, routed
+
+
+def phase_durable(args, holder, data, genes, host, smi, kb, commit):
+    """Durability on the card, last since it ends the slice's store: a
+    snapshot of the committed FlyBase-shaped store, two commits with the
+    WAL armed, the store dropped and restored through the facade, and
+    four query families on the restored store against the dead store's
+    answers and numpy's; then on SMALL a restore bit-equal to the dead
+    store, a torn WAL tail, a corrupt section and the warm bundle.  The
+    counters are zeroed just before the restored store's families and
+    read just after."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from das_tpu_torch.api.atomspace import DistributedAtomSpace
+    from das_tpu_torch.core.config import DasConfig
+    from das_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from das_tpu_torch.query import compiler, fused
+    from das_tpu_torch.storage import atom_table, checkpoint, durable
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="das_durable_")
+    try:
+        disk = shutil.disk_usage(root)
+        print(f"durable root {root}: disk total {disk.total} used {disk.used} free {disk.free}",
+              flush=True)
+        das = holder.pop("das")
+        db = das.db
+        ref, name_of = commit["ref"], commit["name_of"]
+        rng = random.Random(args.seed + 10)
+        lineage = os.path.join(root, das.database_name)
+        durable.reset_stats()
+
+        # -- the snapshot, timed by part: the host finalize, the payloads'
+        # building and encoding (records, registry, warm bundle, in order),
+        # each section's write and fsync
+        snap_parts, encodes = {}, iter(("encode records", "encode registry", "encode warm"))
+        fin = db.fin
+        with Timed(snap_parts, data, "finalize"), \
+                Timed(snap_parts, checkpoint, "_records_payload"), \
+                Timed(snap_parts, durable, "encode", key=lambda *a: next(encodes)), \
+                Timed(snap_parts, durable, "atomic_write",
+                      key=lambda path, *a: f"write {os.path.basename(path)}"):
+            t0 = time.perf_counter()
+            gen = das.save_snapshot(lineage)
+            snapshot_s = time.perf_counter() - t0
+        manifest = durable.read_manifest(gen)
+        if db.fin is not fin or db._wal is None or manifest["delta_version"] != db.delta_version:
+            raise AssertionError("the snapshot replaced the live fin or armed no WAL")
+
+        # -- two commits with the WAL armed, each after a timed gc.collect()
+        # and split into the parse into the host store, the one add of it
+        # that frees the host Finalized the snapshot left cached, the WAL
+        # append, and the collector's pauses inside the commit
+        armed_ms, armed_parts, armed_atoms = [], [], 0
+        for k in range(2):
+            nodes, links, new, _partners = gene_commit(
+                rng, ref, name_of, f"GENE:durable{k}_", 256, commit["with_procs"],
+                commit["procs"])
+            total, version = db._delta_total, db.delta_version
+            parts = {"snapshot_fin_cached": das.data._fin is not None}
+            t0 = time.perf_counter()
+            gc.collect()
+            parts["gc_collect_before_ms"] = (time.perf_counter() - t0) * 1e3
+            sink = {}
+            torch.cuda.synchronize()
+            with Timed(sink, atom_table, "load_metta_text"), \
+                    Timed(sink, durable.DeltaLog, "append"), \
+                    FinRelease(das.data) as freed, GcPauses() as pauses:
+                t0 = time.perf_counter()
+                das.commit_transaction(transaction(das, nodes, links))
+                torch.cuda.synchronize()
+                armed_ms.append((time.perf_counter() - t0) * 1e3)
+            parts.update({
+                "parse_ms": sink["load_metta_text"] * 1e3,
+                "fin_release_ms": freed.ms,
+                "wal_append_ms": sink["append"] * 1e3,
+                "wal_share": sink["append"] * 1e3 / armed_ms[-1],
+                "refresh_rest_ms": armed_ms[-1] - (sink["load_metta_text"] + sink["append"]) * 1e3,
+                "gc_pause_ms": pauses.ms, "gc_collections": pauses.by_gen})
+            armed_parts.append(parts)
+            ref.record(db, links)
+            armed_atoms += 256 + len(links)
+            name_of.update((db.get_node_handle("Gene", n), n) for n in new)
+            if (db.delta_version != version + 1 or db._delta_total != total + 256 + len(links)
+                    or db.fin is not fin):
+                raise AssertionError("an armed commit was not incremental into the live fin")
+        wal_path = os.path.join(gen, durable.WAL_FILE)
+        wal_records, torn = durable.read_wal(wal_path, truncate=False)
+        if torn or [r["v"] for r in wal_records] != [db.delta_version - 1, db.delta_version]:
+            raise AssertionError("the WAL does not hold the two armed commits")
+        families = durable_families(args, data, host, ref, name_of)
+        dead, _ = family_answers(das, families)
+        for fam, queries in families.items():
+            if dead[fam] != [want for _q, want in queries]:
+                raise AssertionError(f"the live store's {fam} answers differ from numpy")
+        dead_version = db.delta_version
+
+        # -- drop the store, restore it ---------------------------------------------
+        torch.cuda.synchronize()
+        mem_live = torch.cuda.memory_allocated()
+        del das, db
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem_dropped = torch.cuda.memory_allocated()
+        restore_parts = {}
+        with Timed(restore_parts, durable, "verify_generation"), \
+                Timed(restore_parts, durable, "decode"), \
+                Timed(restore_parts, checkpoint, "_restore_records"), \
+                Timed(restore_parts, checkpoint, "_restore_indexes"), \
+                Timed(restore_parts, durable, "replay_wal"):
+            t0 = time.perf_counter()
+            rdas = DistributedAtomSpace(backend="tensor", device=DEVICE,
+                                        config=DasConfig(snapshot_dir=root))
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+        rdb = rdas.db
+        # the generation is a fresh finalize, so the restored store's overlay
+        # holds the two replayed commits only
+        on_device = rdb.dev.buckets[2].rows.device.type == torch.device(DEVICE).type
+        if (durable.DUR_STATS["recovery_replayed"] != 2 or rdb.delta_version != dead_version
+                or rdb._delta_total != armed_atoms or not on_device):
+            raise AssertionError(
+                f"restore: replayed {durable.DUR_STATS['recovery_replayed']}, delta_version "
+                f"{rdb.delta_version} / {dead_version}, _delta_total {rdb._delta_total} / "
+                f"{armed_atoms}")
+        torch.cuda.synchronize()
+        compiler.reset_route_counts()
+        reset_launch_counts()
+        f0 = fused.FETCH_COUNTS["n"]
+        t0 = time.perf_counter()
+        got, stars_routed = family_answers(rdas, families)
+        families_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = dict(LAUNCH_COUNTS)
+        routes = dict(compiler.ROUTE_COUNTS)
+        fetches = fused.FETCH_COUNTS["n"] - f0
+        for fam in families:
+            if got[fam] != dead[fam]:
+                raise AssertionError(f"the restored store's {fam} answers differ")
+        idle = [k for k in TPU_KERNELS if launches[k] == 0]
+        if idle or routes["host"]:
+            raise AssertionError(f"restored store: kernels idle {idle}, routes {routes}")
+        answers = {fam: sum(len(a) for a in v) for fam, v in got.items()}
+        del rdas, rdb
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        small = durable_small(args, root)
+        emit({
+            "phase": "durable", "card": smi, "scale": args.scale,
+            "disk_free_bytes": disk.free,
+            "snapshot_s": snapshot_s, "snapshot_parts_s": snap_parts,
+            "section_bytes": {n: m["bytes"] for n, m in manifest["sections"].items()},
+            "armed_commit_ms": armed_ms, "armed_commit_parts": armed_parts,
+            "unarmed_commit_ms_p50": commit["commit_ms_p50"],
+            "wal_bytes": os.path.getsize(wal_path), "wal_records": len(wal_records),
+            "restore_s": restore_s, "restore_parts_s": restore_parts,
+            "kb_build_s": kb["build_s"],
+            "kb_finalize_upload_s": kb["finalize_upload_s"],
+            "kb_build_plus_upload_s": kb["build_s"] + kb["finalize_upload_s"],
+            "replayed": 2, "delta_version": dead_version, "restored_delta_total": armed_atoms,
+            "device_bytes": {"live": mem_live, "dropped": mem_dropped},
+            "families_s": families_s, "answers": answers, "host_fetches": fetches,
+            "stars_multiway_auto": stars_routed, "routes": routes, "launches": launches,
+            "small": small, "phase_s": time.perf_counter() - t_phase,
+        })
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def durable_small(args, root):
+    """On SMALL: attach at construction, commit twice, drop and restore
+    (every table bit-equal to the dead store's), a torn WAL tail, a
+    corrupt section of a newer generation, and the warm bundle applied at
+    its version and discarded past it, with first-pass rounds."""
+    import gc
+
+    import torch
+
+    from das_tpu_torch.api.atomspace import DistributedAtomSpace
+    from das_tpu_torch.core.config import DasConfig
+    from das_tpu_torch.storage import checkpoint, durable
+
+    rng = random.Random(args.seed + 12)
+    sdata, sgenes = build_kb(SMALL, args.seed)
+    shost = HostKB(sdata, sgenes)
+    sref = CommitRef(shost)
+    sprocs = sorted({sref.hexes[p] for p in shost.member[:, 1].tolist()})
+    sname = {h: sdata.nodes[h].name for h in sref.hexes[:len(sdata.nodes)]}
+    sexisting = sorted({sref.hexes[g] for g in shost.member[:, 0].tolist()})
+    sroot = os.path.join(root, "small")
+    cfg = lambda **kw: DasConfig(snapshot_dir=sroot, **kw)
+    sdas = DistributedAtomSpace(backend="tensor", data=sdata, device=DEVICE, config=cfg())
+    new = []
+    for k in range(2):
+        nodes, links, names, _p = gene_commit(rng, sref, sname, f"GENE:sdur{k}_", 16, sexisting,
+                                              sprocs)
+        sdas.commit_transaction(transaction(sdas, nodes, links))
+        new += names
+    queries = [grounded_query(g, negate) for g in new[:4] + [sname[h] for h in sexisting[:4]]
+               for negate in (False, True)]
+    want = [answer_handles(sdas, q) for q in queries]
+    if not any(want):
+        raise AssertionError("SMALL: every answer is empty")
+    tables = host_tables(sdas.db)
+    version = sdas.db.delta_version
+    del sdas
+    gc.collect()
+
+    def restore(what, expect):
+        durable.reset_stats()
+        r = DistributedAtomSpace(backend="tensor", device=DEVICE, config=cfg())
+        stats = durable.snapshot_stats()
+        for k, v in expect.items():
+            if stats[k] != v:
+                raise AssertionError(f"SMALL {what}: {k} {stats[k]}, expected {v}")
+        if r.db.delta_version != version:
+            raise AssertionError(f"SMALL {what}: delta_version {r.db.delta_version} != {version}")
+        n = assert_same_tables(tables, host_tables(r.db), f"SMALL {what}")
+        if [answer_handles(r, q) for q in queries] != want:
+            raise AssertionError(f"SMALL {what}: answers differ from the dead store's")
+        return r, n
+
+    r1, n_arrays = restore("restore", {"recovery_replayed": 2})
+    gen1 = durable.list_generations(os.path.join(sroot, r1.database_name))[-1][1]
+    wal = os.path.join(gen1, durable.WAL_FILE)
+    clean = os.path.getsize(wal)
+    with open(wal, "ab") as f:       # half a frame: a crash mid-append
+        frame = durable._WAL_HEADER.pack(durable.WAL_MAGIC, 4096, 0) + b"\0" * 2048
+        f.write(frame[:len(frame) // 2])
+    r2, _ = restore("torn tail", {"recovery_replayed": 2, "torn_tail_truncations": 1})
+    if os.path.getsize(wal) != clean:
+        raise AssertionError("SMALL: the torn tail was not cut back to the last frame")
+    gen2 = r2.save_snapshot()
+    path = os.path.join(gen2, checkpoint.RECORDS_FILE)
+    blob = bytearray(open(path, "rb").read())
+    blob[len(blob) // 2] ^= 0xFF
+    with open(path, "wb") as f:
+        f.write(bytes(blob))
+    restore("corrupt section", {"recovery_replayed": 2, "corrupt_generations": 1})
+    del r1, r2
+
+    # the warm bundle: the planner off, so the blind seeds miss and retry
+    wroot = os.path.join(root, "small_warm")
+    wcfg = lambda: DasConfig(snapshot_dir=wroot, use_planner="off")
+    wdata, wgenes = build_kb(SMALL, args.seed)
+    wdas = DistributedAtomSpace(backend="tensor", data=wdata, device=DEVICE, config=wcfg())
+    procs = sorted(r.name for r in wdata.nodes.values() if r.named_type == "BiologicalProcess")
+    gnames = [wdata.nodes[h].name for h in wgenes]
+    wq = [fanout_star_query(p) for p in procs[:8]] + [grounded_query(g) for g in gnames[:8]]
+
+    def first_pass(d):
+        with ConjRounds() as rounds:
+            got = [answer_set(d, q) for q in wq]
+        return rounds.n, got
+
+    live_rounds, wwant = first_pass(wdas)
+    if live_rounds <= len(wq):
+        raise AssertionError("SMALL warm: the blind seeds retried no query")
+    wgen = wdas.save_snapshot()
+    with_bundle = DistributedAtomSpace(backend="tensor", device=DEVICE, config=wcfg())
+    rounds_with, got = first_pass(with_bundle)
+    without = DistributedAtomSpace(backend="tensor", device=DEVICE,
+                                   data=checkpoint.load(wgen, _verified=True),
+                                   config=DasConfig(use_planner="off"))
+    rounds_without, got2 = first_pass(without)
+    if got != wwant or got2 != wwant or rounds_with != len(wq) or rounds_without != live_rounds:
+        raise AssertionError(f"SMALL warm: rounds {rounds_with} with the bundle, "
+                             f"{rounds_without} without, {live_rounds} live")
+    g0 = gnames[0]
+    with_bundle.commit_transaction(transaction(
+        with_bundle, {g0: "Gene", "GENE:warm_new": "Gene", procs[0]: "BiologicalProcess"},
+        [("Member", "GENE:warm_new", procs[0]), ("Interacts", "GENE:warm_new", g0)]))
+    stale = DistributedAtomSpace(backend="tensor", device=DEVICE, config=wcfg())
+    from das_tpu_torch.query.fused import get_executor
+
+    if get_executor(stale.db)._cap_store._data or stale.db.delta_version != \
+            with_bundle.db.delta_version:
+        raise AssertionError("SMALL warm: a bundle older than the store was applied")
+    rounds_stale, _ = first_pass(stale)
+    torch.cuda.synchronize()
+    return {"arrays_bit_equal": n_arrays, "delta_version": version,
+            "torn_tail_cut_to": clean, "warm": {
+                "queries": len(wq), "live_rounds": live_rounds,
+                "restored_with_bundle_rounds": rounds_with,
+                "restored_without_bundle_rounds": rounds_without,
+                "restored_past_bundle_rounds": rounds_stale}}
 
 
 def main(argv=None) -> int:
@@ -2337,9 +2862,14 @@ def main(argv=None) -> int:
     phase_count_batch(args, das, data, genes, host)
     api = phase_api(args, das, data, genes, host, families, smi)
     tree = phase_tree(args, das, data, genes, host, (ldas, ldata, lgenes), smi)
-    commit = phase_commit(args, das, data, genes, host, smi, upload_s, slice_p50)
+    commit, committed = phase_commit(args, das, data, genes, host, smi, upload_s, slice_p50)
+    # the durable phase drops the store: this frame keeps no reference to it
+    holder = {"das": das}
+    del das
+    durable = phase_durable(args, holder, data, genes, host, smi,
+                            {"build_s": build_s, "finalize_upload_s": upload_s}, committed)
     for name in TPU_KERNELS:
-        launches[name] += api[name] + tree[name] + commit[name]
+        launches[name] += api[name] + tree[name] + commit[name] + durable[name]
 
     kernels_line = []
     for name, (source, replaces) in TPU_KERNELS.items():

@@ -13,13 +13,23 @@ fetch per retry round; the answers are the strings `query()` gives.
 `commit_transaction` commits incrementally into the device store
 (storage/delta.py); `explain` renders the planner's costed plan.
 
-Not ported yet: checkpoints and snapshots, the canonical loader, the
-sharded backend."""
+Durability (storage/checkpoint.py, storage/durable.py): with
+`config.snapshot_dir` set, a tensor facade built without data restores
+the newest valid snapshot generation under `<snapshot_dir>/<database_name>`
+and replays its write-ahead log; built with data (or over an empty root)
+it writes the first generation and logs every commit.
+`save_snapshot` / `restore_snapshot` write and read generations,
+`save_checkpoint` / `load_checkpoint` a flat checkpoint directory, and
+`config.checkpoint_path` is loaded at construction.
+
+Not ported yet: the sharded backend and its sharded checkpoint, the
+canonical loader."""
 
 from __future__ import annotations
 
 import json
 import logging
+import os
 from enum import Enum, auto
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -186,10 +196,48 @@ class DistributedAtomSpace:
         backend = kwargs.get("backend", self.config.backend)
         self.config.backend = backend
         self.device = kwargs.get("device")
-        self.data = kwargs.get("data") or AtomSpaceData()
+        data = kwargs.get("data")
+        if data is None and self.config.snapshot_dir and backend == "tensor":
+            # a populated snapshot root: the newest valid generation, its
+            # WAL replayed, and the warm bundle; commits keep logging
+            from das_tpu_torch.storage import durable
+
+            root = self._snapshot_root()
+            if durable.list_generations(root):
+                self.db = durable.restore(root, config=self.config, backend=backend,
+                                          device=self.device)
+                self.data = self.db.data
+                self.pattern_black_list = list(self.config.pattern_black_list)
+                log.info(f"New Distributed Atom Space '{self.database_name}' "
+                         f"(backend={backend}, restored from {root})")
+                return
+        if data is None and self.config.checkpoint_path:
+            from das_tpu_torch.storage import checkpoint
+
+            if os.path.isdir(self.config.checkpoint_path):
+                data = checkpoint.load(self.config.checkpoint_path)
+            else:
+                log.warning(f"checkpoint_path '{self.config.checkpoint_path}' does not "
+                            "exist; starting with an empty AtomSpace")
+        self.data = data or AtomSpaceData()
         self.pattern_black_list = list(self.config.pattern_black_list)
         self.db = self._make_backend(backend)
+        if self.config.snapshot_dir and backend == "tensor":
+            # a fresh store under a snapshot root: the first generation
+            # (the WAL needs a base to replay onto), then the delta log
+            from das_tpu_torch.storage import durable
+
+            durable.attach(self.db, self._snapshot_root())
         log.info(f"New Distributed Atom Space '{self.database_name}' (backend={backend})")
+
+    def _snapshot_root(self) -> Optional[str]:
+        """This facade's snapshot root: `snapshot_dir` namespaced by
+        database_name, so one generation lineage holds one store's history
+        (two stores sharing a root would interleave their versions in one
+        WAL).  `TensorDB.restore(path)` takes a lineage directory itself."""
+        if not self.config.snapshot_dir:
+            return None
+        return os.path.join(self.config.snapshot_dir, self.database_name)
 
     def _make_backend(self, backend: str):
         if backend == "memory":
@@ -218,11 +266,18 @@ class DistributedAtomSpace:
 
     def clear_database(self) -> None:
         """An empty store on a new backend of the same kind and device,
-        keeping the black list."""
+        keeping the black list; under a snapshot root it is written as a
+        new generation."""
         black_list = self.pattern_black_list
         self.data = AtomSpaceData()
         self.data.pattern_black_list = black_list
         self.db = self._make_backend(self.config.backend)
+        if self.config.snapshot_dir and self.config.backend == "tensor":
+            # a durable store's clear is a state change: the empty store is
+            # a new generation (the old WAL's versions would not continue)
+            from das_tpu_torch.storage import durable
+
+            durable.write_snapshot(self.db, self._snapshot_root())
 
     def count_atoms(self) -> Tuple[int, int]:
         return self.db.count_atoms()
@@ -456,3 +511,44 @@ class DistributedAtomSpace:
 
         load_metta_text(text, self.data)
         self._refresh()
+
+    # -- checkpoints and snapshots -----------------------------------------
+
+    def save_checkpoint(self, path: str, with_indexes: bool = True) -> None:
+        """Write the AtomSpace (records and, by default, the probe indexes)
+        to a checkpoint directory."""
+        from das_tpu_torch.storage import checkpoint
+
+        checkpoint.save(self.data, path, with_indexes=with_indexes)
+
+    def load_checkpoint(self, path: str) -> None:
+        """Replace the contents with a checkpoint (a flat directory, or a
+        snapshot root with its WAL commits), on the facade's device."""
+        from das_tpu_torch.storage import checkpoint
+
+        self.data = checkpoint.load(path)
+        self.db = self._make_backend(self.config.backend)
+
+    def save_snapshot(self, path: Optional[str] = None) -> str:
+        """One atomic generational snapshot of the live store under `path`
+        (default: the facade's snapshot root); the WAL moves to the new
+        generation.  Returns the generation directory."""
+        from das_tpu_torch.storage import durable
+
+        root = path or self._snapshot_root()
+        if not root:
+            raise ValueError("no snapshot root: pass a path or set DasConfig.snapshot_dir")
+        return durable.write_snapshot(self.db, root)
+
+    def restore_snapshot(self, path: Optional[str] = None) -> None:
+        """Replace the contents with the newest valid generation under
+        `path` (default: the facade's snapshot root), its WAL replayed and
+        its warm bundle applied, on the facade's device."""
+        from das_tpu_torch.storage import durable
+
+        root = path or self._snapshot_root()
+        if not root:
+            raise ValueError("no snapshot root: pass a path or set DasConfig.snapshot_dir")
+        self.db = durable.restore(root, config=self.config, backend=self.config.backend,
+                                  device=self.device)
+        self.data = self.db.data

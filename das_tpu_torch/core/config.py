@@ -19,12 +19,22 @@ config only (no environment variable):
 whole-tree job; it too is read from the config only.
 `result_cache_size` bounds the fused executor's answered-result cache (0
 disables it); `delta_merge_threshold` bounds the atoms incremental
-commits may add before the store is fully re-finalized."""
+commits may add before the store is fully re-finalized.
+
+Durability (storage/checkpoint.py, storage/durable.py): `checkpoint_path`
+is a checkpoint the facade loads at construction; `snapshot_dir` is the
+root of the generational snapshots (namespaced by the facade's
+`database_name`), restored at construction when it holds a generation
+and written otherwise, with the write-ahead delta log always armed under
+it; `snapshot_keep` bounds
+the generations that survive pruning; `cap_store_dir` is the directory of
+the learned-capacity files (query/fused.py `CapStore`), None = kept in
+memory only.  None of them is read from the environment."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
 
 
 @dataclass
@@ -50,3 +60,13 @@ class DasConfig:
     # on (ineligible shapes take the staged tree, same answers); "off" =
     # the staged tree always.
     use_tree_fusion: str = "auto"
+    # durability: a checkpoint directory loaded at construction
+    checkpoint_path: Optional[str] = None
+    # generational snapshot root (storage/durable.py); the facade
+    # namespaces it by database_name
+    snapshot_dir: Optional[str] = None
+    # completed generations kept by pruning
+    snapshot_keep: int = 2
+    # directory of the learned-capacity files (query/fused.py CapStore);
+    # None keeps them in memory only
+    cap_store_dir: Optional[str] = None

@@ -38,3 +38,13 @@ class BreakerOpenError(DasError):
                  retry_after_ms: float = None):
         self.retry_after_ms = retry_after_ms
         super().__init__(msg)
+
+
+class SnapshotCorruptError(DasError):
+    """A persisted snapshot generation or its write-ahead log failed
+    verification (storage/durable.py): a section's CRC-32 does not match
+    its manifest digest, the manifest is torn or absent, a WAL frame in
+    the middle of the file is corrupt, or WAL replay broke the
+    delta_version continuity check.  Restore never serves unverified
+    bytes: it falls back to the newest valid prior generation, and raises
+    this only when none is left."""

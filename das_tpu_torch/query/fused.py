@@ -41,11 +41,19 @@ a `ResultCache` for the store's `delta_version`.
 group runs its lanes one after another on one stream (the eager
 counterpart of `jax.vmap`, identical lanes computed once) with one host
 fetch per retry round per group; entries the greedy order cannot decide
-re-run on the exact reference-order program."""
+re-run on the exact reference-order program.
+
+Learned capacities also go to a `CapStore` file when
+`DasConfig.cap_store_dir` is set, and `export_warm_state` /
+`apply_warm_state` carry them, the count-only cache entries and the
+planner's statistics across a snapshot and restore (storage/durable.py)."""
 
 from __future__ import annotations
 
 import copy
+import hashlib
+import json
+import os
 import threading
 import time
 from collections import OrderedDict
@@ -711,6 +719,66 @@ class ResultCache:
             self._data.clear()
 
 
+class CapStore:
+    """Learned capacities that outlive the process, keyed by a stable hash
+    of the plan signature and a salt (the store's size).  The executor's
+    `_caps` / `_exact_caps` dicts are the in-process record; a store holds
+    the hashed entries read from its file or from a warm bundle, and
+    `view` hashes the executor's dict only when a bundle is exported.
+    With a directory, each learned capacity is also written to the file,
+    so a fresh process starts at the last learned capacities instead of
+    re-learning them through retry rounds.  Capacities are hints: a stale
+    entry costs a retry, never an answer."""
+
+    def __init__(self, tag: str, directory: Optional[str] = None):
+        self.path = None if directory is None else os.path.join(directory, f"caps_{tag}.json")
+        self._data = {}
+        if self.path and os.path.exists(self.path):
+            try:
+                with open(self.path) as fh:
+                    self._data = json.load(fh)
+            except Exception:  # noqa: BLE001 — an unreadable file is an empty store
+                self._data = {}
+
+    def __len__(self) -> int:
+        return len(self._data)
+
+    @staticmethod
+    def _key(sigs, salt: str) -> str:
+        return hashlib.md5((repr(sigs) + "|" + salt).encode()).hexdigest()
+
+    def load(self, sigs, salt: str = ""):
+        caps = self._data.get(self._key(sigs, salt))
+        return None if caps is None else tuple(tuple(c) for c in caps)
+
+    def save(self, sigs, caps, salt: str = "") -> None:
+        """Write one learned capacity through to the store's file (a no-op
+        without a directory)."""
+        if self.path is None:
+            return
+        key = self._key(sigs, salt)
+        as_lists = [list(c) for c in caps]
+        if self._data.get(key) == as_lists:
+            return
+        self._data[key] = as_lists
+        try:
+            os.makedirs(os.path.dirname(self.path), exist_ok=True)
+            tmp = self.path + f".tmp{os.getpid()}"
+            with open(tmp, "w") as fh:
+                json.dump(self._data, fh)
+            os.replace(tmp, self.path)
+        except Exception:  # noqa: BLE001 — persistence is best-effort
+            pass
+
+    def view(self, mem, salt: str) -> Dict:
+        """The hashed entries with the executor's learned `mem` dict keyed
+        in at the store's current salt."""
+        out = dict(self._data)
+        for sigs, caps in mem.items():
+            out[self._key(sigs, salt)] = [list(c) for c in caps]
+        return out
+
+
 def result_cache_stats(db) -> Dict[str, int]:
     """Hit, miss and invalidation counters of the store's live executor
     caches, the conjunctive results' and the tree's, summed (zeros when no
@@ -804,7 +872,7 @@ class _ExecJob:
                 return True
             self.term_caps, self.join_caps = new_tc, new_jc
             return False
-        self.ex._caps[self.sigs] = (self.term_caps, self.join_caps)
+        self.ex._remember_caps(self.sigs, self.term_caps, self.join_caps)
         self.last_ranges = [int(r) for r in ranges]
         self.last_join_rows = [int(t) for t in jcounts]
         if self.planned is not None:
@@ -1167,18 +1235,43 @@ class FusedExecutor:
         self.batch_counts = {"groups": 0, "lanes": 0, "members": 0, "exact_groups": 0}
         self._caps: Dict[Tuple, Tuple[Tuple[int, ...], Tuple[int, ...]]] = {}
         self._exact_caps: Dict[Tuple, Tuple[Tuple[int, ...], Tuple[int, ...]]] = {}
+        # hashed capacities from DasConfig.cap_store_dir or a warm bundle,
+        # consulted when the dicts above miss
+        self._cap_store = CapStore("greedy", db.config.cap_store_dir)
+        self._exact_cap_store = CapStore("exact", db.config.cap_store_dir)
 
-    @staticmethod
-    def _learned_caps(mem, sigs, shape_lens):
-        """Learned caps for the signature, if their per-stage lengths match:
-        the same terms carry per-JOIN buffers on the chain but per-STEP
-        buffers with a multiway step."""
+    def _cap_salt(self) -> str:
+        """Capacities depend on the store's size: the persistent store is
+        keyed by it, so a large store's caps never seed a small one."""
+        fin = self.db.fin
+        return f"{fin.atom_count}:{fin.node_count}"
+
+    def _learned_caps(self, mem, store, sigs, shape_lens):
+        """Learned caps for the signature, in memory or else in the
+        persistent store, if their per-stage lengths match: the same terms
+        carry per-JOIN buffers on the chain but per-STEP buffers with a
+        multiway step."""
+        def valid(caps):
+            return caps is not None and len(caps) == len(shape_lens) and all(
+                len(c) == n for c, n in zip(caps, shape_lens))
+
         caps = mem.get(sigs)
-        if caps is not None and len(caps) == len(shape_lens) and all(
-            len(c) == n for c, n in zip(caps, shape_lens)
-        ):
+        if valid(caps):
             return caps
-        return None
+        if not store:
+            return None
+        caps = store.load(sigs, self._cap_salt())
+        return caps if valid(caps) else None
+
+    def _remember_caps(self, sigs, term_caps, join_caps) -> None:
+        self._caps[sigs] = (term_caps, join_caps)
+        if self._cap_store.path is not None:
+            self._cap_store.save(sigs, (term_caps, join_caps), self._cap_salt())
+
+    def _remember_exact_caps(self, sigs, term_caps, chain_caps) -> None:
+        self._exact_caps[sigs] = (term_caps, chain_caps)
+        if self._exact_cap_store.path is not None:
+            self._exact_cap_store.save(sigs, (term_caps, chain_caps), self._cap_salt())
 
     def _term_args(self, plan) -> Optional[Tuple[FusedTermSig, Tuple, object, np.ndarray]]:
         """Map a compiler.TermPlan to (sig, bucket_arrays, key, fixed_vals);
@@ -1287,7 +1380,8 @@ class FusedExecutor:
             join_caps = planned.join_cap_seeds
         else:
             join_caps = tuple([self._join_cap_seed(ordered, term_caps)] * n_steps)
-        learned = self._learned_caps(self._caps, sigs, (len(term_caps), len(join_caps)))
+        learned = self._learned_caps(self._caps, self._cap_store, sigs,
+                                     (len(term_caps), len(join_caps)))
         if learned is not None:
             term_caps = clamp_index_terms(
                 tuple(max(a, b) for a, b in zip(term_caps, learned[0])), index_right
@@ -1370,7 +1464,8 @@ class FusedExecutor:
         term_caps = tuple(_pow2_at_least(self._estimate(p)) for p in plans)
         P = sum(1 for s in sigs if not s.negated)
         chain_caps = tuple([self._join_cap_seed(plans, term_caps)] * len(_chain_order(P)))
-        learned = self._learned_caps(self._exact_caps, sigs, (len(term_caps), len(chain_caps)))
+        learned = self._learned_caps(self._exact_caps, self._exact_cap_store, sigs,
+                                     (len(term_caps), len(chain_caps)))
         if learned is not None:
             term_caps = tuple(max(a, b) for a, b in zip(term_caps, learned[0]))
             chain_caps = tuple(max(a, b) for a, b in zip(chain_caps, learned[1]))
@@ -1397,7 +1492,7 @@ class FusedExecutor:
             if max(new_tc + new_cc, default=0) > cfg.max_result_capacity:
                 return None
             term_caps, chain_caps = new_tc, new_cc
-        self._exact_caps[sigs] = (term_caps, chain_caps)
+        self._remember_exact_caps(sigs, term_caps, chain_caps)
         _all, names_per_state, cols_per_state, _cap = exact_layout(sig)
         s_act = int(stats[1])
         cols = list(cols_per_state[s_act])
@@ -1564,7 +1659,8 @@ class FusedExecutor:
             join_caps = tuple(
                 [self._group_cap_seed(sigs, [prepared[m][5] for m in members])] * n_joins
             )
-            learned = self._learned_caps(self._caps, sigs, (len(term_caps), len(join_caps)))
+            learned = self._learned_caps(self._caps, self._cap_store, sigs,
+                                     (len(term_caps), len(join_caps)))
             if learned is not None:
                 term_caps = clamp_index_terms(
                     tuple(max(a, b) for a, b in zip(term_caps, learned[0])), index_right
@@ -1584,7 +1680,7 @@ class FusedExecutor:
             )
             if stats is None:
                 continue
-            self._caps[sigs] = (term_caps, join_caps)
+            self._remember_caps(sigs, term_caps, join_caps)
             if on_card:
                 # one count per query whose group ran the hand-written kernels
                 _compiler.ROUTE_COUNTS["count_kernel"] += len(members)
@@ -1616,7 +1712,7 @@ class FusedExecutor:
             P = sum(1 for s in sigs if not s.negated)
             cap0 = self._group_cap_seed(sigs, [mm[4] for mm in members])
             chain_caps = tuple([cap0] * len(_chain_order(P)))
-            learned = self._learned_caps(self._exact_caps, sigs,
+            learned = self._learned_caps(self._exact_caps, self._exact_cap_store, sigs,
                                          (len(term_caps), len(chain_caps)))
             if learned is not None:
                 term_caps = tuple(max(a, b) for a, b in zip(term_caps, learned[0]))
@@ -1636,7 +1732,7 @@ class FusedExecutor:
             )
             if stats is None:
                 continue
-            self._exact_caps[sigs] = (term_caps, chain_caps)
+            self._remember_exact_caps(sigs, term_caps, chain_caps)
             for row, mm in zip(stats, members):
                 answer(mm[0], int(row[0]))
         return out
@@ -1652,3 +1748,85 @@ def get_executor(db) -> FusedExecutor:
         ex = FusedExecutor(db)
         db.dev._fused_executor = ex
     return ex
+
+
+# -- warm-state bundle (storage/durable.py) ----------------------------------
+#
+# What a restored store would otherwise re-learn: the learned capacities
+# (each re-learned one is a retry round), the planner estimator's exact
+# statistics (host searches) and count-only cache entries.  All of it is a
+# hint, keyed by delta_version like the result cache.
+
+
+def _warm_executor(db):
+    return get_executor(db) if getattr(db, "dev", None) is not None else None
+
+
+def _jsonable(obj):
+    """Nested tuples as lists (the keys come back through _tuplize)."""
+    if isinstance(obj, tuple):
+        return [_jsonable(x) for x in obj]
+    return obj
+
+
+def _tuplize(obj):
+    if isinstance(obj, list):
+        return tuple(_tuplize(x) for x in obj)
+    return obj
+
+
+def export_warm_state(db) -> Optional[Dict]:
+    """The warm bundle written beside a snapshot: the learned capacities
+    (stable-hash keyed, `CapStore.view`), the count-only result-cache
+    entries (host ints; binding tables stay on the device and are not
+    persisted) and the planner estimator's memoized statistics at the
+    store's version."""
+    ex = _warm_executor(db)
+    if ex is None:
+        return None
+    out: Dict = {"delta_version": int(getattr(db, "delta_version", 0))}
+    caps, salt = {}, ex._cap_salt()
+    for tag, mem in (("_cap_store", ex._caps), ("_exact_cap_store", ex._exact_caps)):
+        view = getattr(ex, tag).view(mem, salt)
+        if view:
+            caps[tag] = view
+    out["caps"] = caps
+    counts = []
+    with ex.results._lock:
+        for key, entry in ex.results._data.items():
+            if entry.vals is None and isinstance(entry.count, int):
+                counts.append([_jsonable(key), entry.count])
+    out["counts"] = counts
+    est = getattr(db, "_planner_estimator", None)
+    if est is not None and est.version == getattr(db, "delta_version", None):
+        out["planner"] = {
+            "rows": [[_jsonable(k), v] for k, v in est._rows.items()],
+            "distinct": [[_jsonable(k), v] for k, v in est._distinct.items()],
+        }
+    return out
+
+
+def apply_warm_state(db, state: Dict) -> bool:
+    """Apply a warm bundle onto a freshly restored store.  A bundle
+    recorded at a version the store is no longer at (the WAL replayed past
+    the snapshot) is discarded whole."""
+    if int(state.get("delta_version", -1)) != int(getattr(db, "delta_version", 0)):
+        return False
+    ex = _warm_executor(db)
+    if ex is None:
+        return False
+    for tag, data in (state.get("caps") or {}).items():
+        store = getattr(ex, tag, None)
+        if store is not None:
+            store._data.update(data)
+    version = getattr(db, "delta_version", None)
+    for key, n in state.get("counts") or ():
+        ex.results.put(_tuplize(key), FusedResult((), None, None, int(n), False), version)
+    planner = state.get("planner")
+    if planner:
+        from das_tpu_torch.planner.stats import estimator_for
+
+        est = estimator_for(db)
+        est._rows.update((_tuplize(k), int(v)) for k, v in planner.get("rows", ()))
+        est._distinct.update((_tuplize(k), int(v)) for k, v in planner.get("distinct", ()))
+    return True

@@ -16,11 +16,16 @@ commit (`_apply_delta`).  The device merge is the backend's
 LSM-style; past `config.delta_merge_threshold` new atoms the store is
 fully re-finalized and the overlay cleared.
 
+Under a snapshot root (storage/durable.py) `_apply_delta` appends the
+interned delta to the write-ahead log after every arity is staged and
+before the first swap; with no root `_wal` is the class attribute None
+and the commit path is unchanged.
+
 Left out until their modules are ported, none of which changes a result
 when unset: the trace events, and the `commit_apply` fault point with the
 retry policy the JAX package wraps a commit in (`fault/`, `obs/`: here a
-commit is one attempt), the write-ahead log (durability), and the
-columnar store's branch (the columnar ingest)."""
+commit is one attempt), and the columnar store's branch (the columnar
+ingest)."""
 
 from __future__ import annotations
 
@@ -79,6 +84,12 @@ class IncrementalCommitMixin:
     Expects the host class to provide `self.data` (AtomSpaceData),
     `self.fin` (the live Finalized), `self.config` (DasConfig) and
     `_stage_delta_merge(bucket)`."""
+
+    #: the write-ahead log (storage/durable.py DeltaLog) and the snapshot
+    #: root it belongs to, set on the instance by durable.attach /
+    #: write_snapshot / restore; None = no durability
+    _wal = None
+    _snapshot_root = None
 
     def _reset_delta_state(self) -> None:
         # the commit counter: bumps on every device-table change (full
@@ -213,6 +224,12 @@ class IncrementalCommitMixin:
                                          incoming_pairs, fin.dangling_hexes)
             swap, became_base, slots = self._stage_delta_merge(commit_bucket)
             staged.append((arity, commit_bucket, incoming_pairs, swap, became_base, slots))
+        # -- write-ahead log: the interned delta is framed and fsynced
+        # before anything becomes visible; a failed append leaves the store
+        # as it was, and replay skips a retried commit's twin by version
+        wal = self._wal
+        if wal is not None:
+            wal.append(self.data, self.delta_version + 1)
         # -- swap: assignments only -----------------------------------------
         slot_growth = 0
         for arity, commit_bucket, incoming_pairs, swap, became_base, slots in staged:

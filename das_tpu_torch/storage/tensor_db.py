@@ -17,7 +17,9 @@ atoms, merges each arity's small delta bucket into the capacity slack of
 the device tensors, and re-finalizes only when the delta path is unsafe
 or the overlay passed `config.delta_merge_threshold`.  Merged tensors are
 always new tensors, never a live one written in place, so a batch
-dispatched before the commit still reads the tables it was planned on."""
+dispatched before the commit still reads the tables it was planned on.
+Under a snapshot root every commit is logged first (storage/durable.py),
+and `TensorDB.restore` brings a store back from its snapshots."""
 
 from __future__ import annotations
 
@@ -216,11 +218,28 @@ class TensorDB(IncrementalCommitMixin, MemoryDB):
         if action == NOOP:
             return
         if action == FULL:
+            # a rebuild consumes host mutations the incremental log would
+            # miss: log the pending tail (fsynced) before the rebuild, at
+            # the version _reset_delta_state lands on
+            wal = self._wal
+            if wal is not None:
+                wal.append(self.data, self.delta_version + 1, kind="full")
             self.fin = self.data.finalize()
             self.dev = DeviceTables(self.fin, self.device)
             self._reset_delta_state()
             return
         self._apply_delta(*action)
+
+    @classmethod
+    def restore(cls, path: str, config: Optional[DasConfig] = None,
+                device=None) -> "TensorDB":
+        """The newest valid snapshot generation under `path`, its WAL
+        replayed to the head, and its warm bundle (storage/durable.py
+        restore); commits on the restored store append to the
+        generation's WAL.  `device=None` means CUDA."""
+        from das_tpu_torch.storage import durable
+
+        return durable.restore(path, config=config, backend="tensor", device=device)
 
     # -- the device half of an incremental commit ----------------------------
 

@@ -1,6 +1,7 @@
 """The port stands alone: no module of das_tpu_torch/ and not
-chip_smoke.py imports JAX or any module of the JAX package das_tpu
-(pinned by an AST scan), and an entry point left to its default device
+chip_smoke.py imports JAX or any module of the JAX package das_tpu, nor
+msgpack, which the card machine lacks (pinned by an AST scan), and an
+entry point left to its default device
 raises without a CUDA card instead of falling back to the CPU."""
 
 import ast
@@ -37,6 +38,14 @@ def test_no_jax_or_das_tpu_import(path):
     for name in _imports(path):
         top = name.split(".")[0]
         assert top not in FORBIDDEN, f"{path.name} imports {name}"
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_msgpack_import(path):
+    """The port's snapshots and WAL are JSON: msgpack is not installed on
+    the card machine, so an import of it would end the run there."""
+    for name in _imports(path):
+        assert name.split(".")[0] != "msgpack", f"{path.name} imports {name}"
 
 
 def test_default_device_raises_without_card():
