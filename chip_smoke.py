@@ -130,7 +130,22 @@ Phases, one JSON line each:
                grows, a new 3-ary link type and a commit past a small
                delta_merge_threshold (a rebuild), each against the host
                algebra;
- 10. durable — last, since it ends the store: the free disk of a new
+ 10. miner   — after the commits, on the committed store with its overlay
+               segments: bench.py's miner, PatternMiner(halo_length=2,
+               link_rate=0.01, seed=7) on the first 3 genes, expand_halo,
+               build_patterns and mine(ngram=3, epochs=100); halo links,
+               candidates, halo / counting / joints s, ms per halo link,
+               the joints' routes, host fetches and launches; every
+               candidate's count against numpy over the host link columns
+               (no index, no probe).  The drawn composites with a grounded
+               term (at least 32, at least 32 of them non-zero) and the
+               2-term sub-joints the miner counted for their scores, each
+               counted by the host star fold, the device fold and
+               count_batch (the probe and join kernels; whole-table x
+               whole-table joints left out), all equal; the animals KB's
+               miner on the card equal to the memory backend's, its
+               unordered candidates through the tree executor's kernels;
+ 11. durable — last, since it ends the store: the free disk of a new
                temporary root, then save_snapshot of the committed store
                (wall s, each part's s, each section's bytes), two commits
                of 1,792 atoms with the write-ahead log armed (wall ms beside
@@ -158,7 +173,8 @@ Phases, one JSON line each:
                discarded).  The root is removed at the end.
 
 Then a line {"kernels": [...]} with each kernel's route, source, the TPU
-kernel it replaces, launches on the main path, error against the plain
+kernel it replaces, launches on the main path (every phase's after phase
+kernels, count_batch and miner included), error against the plain
 version, its time, the plain version's, the bound and a library call's
 time where one PyTorch call computes the same function; and last
 {"ok": true, "device": {...}}.  Any mismatch raises: the exit code is then
@@ -1439,6 +1455,7 @@ def phase_count_batch(args, das, data, genes, host, width=256):
                                                   & set(host.procs(b).tolist()))
                                              for a, b, _c in triples),
                     "exact_groups": exact_groups, "launches": check_launches}})
+    return {k: launches[k] + check_launches[k] for k in TPU_KERNELS}
 
 
 # ---- phase 7 ---------------------------------------------------------------------
@@ -2318,6 +2335,246 @@ def phase_commit(args, das, data, genes, host, smi, upload_s, slice_p50):
 # ---- phase 10 --------------------------------------------------------------------
 
 
+class TypeColumns:
+    """The target columns of each link type of one arity, concatenated from
+    the store's host segments (base and overlays): a candidate's count is a
+    mask over them, with no sorted index and no host probe."""
+
+    def __init__(self, db, arity=2):
+        from das_tpu_torch.storage.atom_table import host_segments
+
+        self.db = db
+        segs = host_segments(db, arity)
+        type_id = np.concatenate([b.type_id for b in segs])
+        targets = np.concatenate([b.targets for b in segs])
+        self.by_type = {int(t): targets[type_id == t] for t in np.unique(type_id)}
+
+    def count(self, link):
+        """Matches of one candidate: an ordered link pattern whose variables
+        are distinct and appear once (a wildcard variant)."""
+        from das_tpu_torch.query.ast import Node
+
+        if not link.ordered:
+            raise AssertionError(f"unordered candidate on the bio KB: {link!r}")
+        cols = self.by_type.get(self.db._type_id(link.atom_type))
+        if cols is None:
+            return 0
+        keep = np.ones(cols.shape[0], dtype=bool)
+        for pos, t in enumerate(link.targets):
+            if isinstance(t, Node):
+                keep &= cols[:, pos] == self.db.fin.row_of_hex[
+                    self.db.get_node_handle(t.atom_type, t.name)]
+        return int(keep.sum())
+
+
+def has_grounded(query):
+    from das_tpu_torch.query.ast import Node
+
+    return any(isinstance(t, Node) for term in query.terms for t in term.targets)
+
+
+def star_three_way(db, queries):
+    """Each star query counted three ways on `db`, every cache cleared
+    first: (a) the host fold (`star_count_many`), (b) the device fold
+    (`_device_count_group`), (c) where a term is grounded, `count_batch`
+    (the general executors), and what it declines through
+    `count_matches_staged` (the miner's own fallback).  Returns the counts of (a), (b) and (c) (None where left
+    out) and a report: each way's seconds, (b)'s fetches, (c)'s launches,
+    staged entries and left-outs by reason."""
+    import torch
+
+    from das_tpu_torch.core.exceptions import CapacityOverflowError
+    from das_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from das_tpu_torch.query import compiler, starcount
+    from das_tpu_torch.query.fused import get_executor
+
+    plans = [compiler.plan_query(db, q) for q in queries]
+    lanes = [starcount.plan_star(db, p) for p in plans]
+    if any(lane is None for lane in lanes):
+        raise AssertionError("a miner joint is not a star lane")
+    report = {"staged": 0, "left_out": {}}
+    db._star_host_cache = {}
+    t0 = time.perf_counter()
+    host = starcount.star_count_many(db, lanes)
+    report["host_s"] = time.perf_counter() - t0
+    db._star_deg_cache = {}
+    f0 = starcount.FETCHES["n"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev = starcount._device_count_group(db, lanes)
+    torch.cuda.synchronize()
+    report["device_s"] = time.perf_counter() - t0
+    report["device_fetches"] = starcount.FETCHES["n"] - f0
+    db._star_deg_cache = {}
+    idx = [i for i, q in enumerate(queries) if has_grounded(q)]
+    report["left_out"]["no grounded term (whole-table x whole-table)"] = len(queries) - len(idx)
+    fused = [None] * len(queries)
+    ex = get_executor(db)
+    ex.results.clear()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for i, n in zip(idx, ex.count_batch([plans[i] for i in idx])):
+        if n is None:
+            report["staged"] += 1
+            try:
+                n = compiler.count_matches_staged(db, plans[i])
+            except CapacityOverflowError:
+                out = report["left_out"]
+                out["past max_result_capacity"] = out.get("past max_result_capacity", 0) + 1
+                continue
+        fused[i] = n
+    torch.cuda.synchronize()
+    report["fused_s"] = time.perf_counter() - t0
+    report["launches"] = {k: LAUNCH_COUNTS[k] for k in TPU_KERNELS}
+    return host, dev, fused, report
+
+
+def phase_miner(args, das, smi):
+    """The pattern miner on the committed store (overlay segments live), as
+    bench.py `_miner` runs it: PatternMiner(halo_length=2, link_rate=0.01,
+    seed=7) on the first 3 genes, expand_halo, build_patterns, mine(ngram=3,
+    epochs=100); counters zeroed before, read after.  Every candidate's
+    count is held against numpy over the host link columns.  Then the
+    drawn composites with a grounded term and their 2-term sub-joints are
+    counted by the host fold, the device fold and count_batch (the probe
+    and join kernels), all equal; and the animals KB's miner on the card
+    equals the memory backend's."""
+    import torch
+
+    from das_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from das_tpu_torch.mining import PatternMiner
+    from das_tpu_torch.models.animals import animals_metta
+    from das_tpu_torch.query import compiler, fused, starcount, tree
+    from das_tpu_torch.storage.atom_table import load_metta_text
+    from das_tpu_torch.storage.memory_db import MemoryDB
+    from das_tpu_torch.storage.tensor_db import TensorDB
+
+    t_phase = time.perf_counter()
+    db = das.db
+    total = dict.fromkeys(TPU_KERNELS, 0)
+
+    # -- the bench's miner at FlyBase shape --------------------------------------
+    miner = PatternMiner(db, halo_length=2, link_rate=0.01, seed=7)
+    batches = []                      # each count_many call's queries, in order
+    count_many = miner.count_many
+    miner.count_many = lambda queries: batches.append(list(queries)) or count_many(queries)
+    seeds = [db.get_node_handle("Gene", g) for g in db.get_all_nodes("Gene", names=True)[:3]]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    universe = miner.expand_halo(seeds)
+    halo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_candidates = miner.build_patterns()
+    count_s = time.perf_counter() - t0
+    compiler.reset_route_counts()
+    f0 = fused.FETCH_COUNTS["n"] + starcount.FETCHES["n"]
+    t0 = time.perf_counter()
+    best = miner.mine(ngram=3, epochs=100)
+    mine_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    joint_routes = {k: v for k, v in compiler.ROUTE_COUNTS.items() if v}
+    joint_fetches = fused.FETCH_COUNTS["n"] + starcount.FETCHES["n"] - f0
+    mine_launches = {k: LAUNCH_COUNTS[k] for k in TPU_KERNELS}
+    for k in TPU_KERNELS:
+        total[k] += mine_launches[k]
+    if best is None or n_candidates == 0:
+        raise AssertionError("the miner found no candidate or no pattern")
+    cols = TypeColumns(db)
+    wrong = [(repr(c.pattern), c.count, cols.count(c.pattern))
+             for level in miner.candidates for c in level if cols.count(c.pattern) != c.count]
+    if wrong:
+        raise AssertionError(f"{len(wrong)} candidate counts differ from numpy: {wrong[:4]}")
+
+    # -- the star fold held against the kernels ---------------------------------
+    # the drawn composites with a grounded term, and the 2-term sub-joints
+    # the miner counted for its scores (batches: build_patterns, mine's
+    # composites, _prefetch_joints)
+    composites = list({repr(q): q for q in batches[1] if has_grounded(q)}.values())
+    joints = batches[2] if len(batches) > 2 else []
+    queries = composites + joints
+    host, dev, fused_counts, three_way = star_three_way(db, queries)
+    check_launches = three_way["launches"]
+    for k in TPU_KERNELS:
+        total[k] += check_launches[k]
+    if host != dev:
+        bad = [i for i in range(len(queries)) if host[i] != dev[i]]
+        raise AssertionError(f"device fold differs from the host fold at {bad[:8]}")
+    bad = [i for i, n in enumerate(fused_counts) if n is not None and n != host[i]]
+    if bad:
+        raise AssertionError(f"count_batch differs from the host fold at {bad[:8]}: "
+                             f"{[(host[i], fused_counts[i]) for i in bad[:8]]}")
+    compared = sum(fused_counts[i] is not None for i in range(len(composites)))
+    if compared < 32:
+        raise AssertionError(f"only {compared} grounded composites were counted three ways")
+    # a check of zeros against zeros shows little: at least 32 of the
+    # compared composites must have matches
+    compared_nonzero = sum(n is not None and n > 0 for n in fused_counts[:len(composites)])
+    if compared_nonzero < 32:
+        raise AssertionError(f"only {compared_nonzero} of the composites counted three ways "
+                             "have a match")
+    if check_launches["probe"] == 0 or not any(
+            check_launches[k] for k in ("index_join", "join_tables", "multiway")):
+        raise AssertionError(f"count_batch launched no probe or no join: {check_launches}")
+    miner_best = dict(zip(map(repr, queries), host)).get(repr(best.pattern))
+    if miner_best is not None and miner_best != best.count:
+        raise AssertionError("the best pattern's count differs from the host fold's")
+
+    # -- the animals KB on the card against the memory backend ------------------
+    def animals_run(store):
+        m = PatternMiner(store, halo_length=2, link_rate=1.0, seed=3)
+        m.expand_halo(["af12f10f9ae2002a1607ba0b47ba8407"])
+        m.build_patterns()
+        out = [(repr(c.pattern), c.count, c.level) for lv in m.candidates for c in lv]
+        for b in (m.mine(ngram=2, epochs=30), m.mine_exhaustive(ngram=2)):
+            out.append((repr(b.pattern), b.count, b.isurprisingness, b.term_handles))
+        return out
+
+    tree_calls = []
+    query_tree = tree.query_tree
+    tree.query_tree = lambda *a, **kw: tree_calls.append(1) or query_tree(*a, **kw)
+    try:
+        adb = TensorDB(load_metta_text(animals_metta()), device=DEVICE)
+        reset_launch_counts()
+        got = animals_run(adb)
+        torch.cuda.synchronize()
+        animal_launches = {k: LAUNCH_COUNTS[k] for k in TPU_KERNELS}
+    finally:
+        tree.query_tree = query_tree
+    want = animals_run(MemoryDB(load_metta_text(animals_metta())))
+    if got != want:
+        raise AssertionError("the animals miner on the card differs from the memory backend's")
+    if not tree_calls or animal_launches["join_tables"] == 0:
+        raise AssertionError("the animals miner's unordered candidates launched no tree join")
+    for k in TPU_KERNELS:
+        total[k] += animal_launches[k]
+
+    emit({
+        "phase": "miner", "card": smi,
+        "halo_links": universe, "candidates": n_candidates,
+        "halo_s": halo_s, "counting_s": count_s, "joints_s": mine_s,
+        "ms_per_halo_link": (halo_s + count_s + mine_s) / max(universe, 1) * 1e3,
+        "joint_routes": joint_routes, "joint_host_fetches": joint_fetches,
+        "mine_launches": mine_launches, "best_count": best.count,
+        "best_isurprisingness": best.isurprisingness,
+        "candidates_checked": sum(len(lv) for lv in miner.candidates),
+        "three_way": {"composites": len(composites), "sub_joints": len(joints),
+                      "fused_compared": sum(n is not None for n in fused_counts),
+                      "composites_compared": compared,
+                      "nonzero": sum(n > 0 for n in host),
+                      "composites_compared_nonzero": compared_nonzero,
+                      **three_way},
+        "animals": {"rows": len(want), "tree_calls": len(tree_calls),
+                    "launches": animal_launches},
+        "launches": total, "phase_s": time.perf_counter() - t_phase,
+    })
+    return total
+
+
+# ---- phase 11 --------------------------------------------------------------------
+
+
 def host_tables(db):
     """Host copies of every device table of a store: the CSR, and per
     bucket its size, capacity, every column, posting key and perm."""
@@ -2859,17 +3116,19 @@ def main(argv=None) -> int:
     for name in ("probe", "index_join", "join_tables", "anti_join"):
         launches[name] += serving[name]
     launches["multiway"] = phase_planned(das, families)["multiway"]
-    phase_count_batch(args, das, data, genes, host)
+    counted = phase_count_batch(args, das, data, genes, host)
     api = phase_api(args, das, data, genes, host, families, smi)
     tree = phase_tree(args, das, data, genes, host, (ldas, ldata, lgenes), smi)
     commit, committed = phase_commit(args, das, data, genes, host, smi, upload_s, slice_p50)
+    mined = phase_miner(args, das, smi)
     # the durable phase drops the store: this frame keeps no reference to it
     holder = {"das": das}
     del das
     durable = phase_durable(args, holder, data, genes, host, smi,
                             {"build_s": build_s, "finalize_upload_s": upload_s}, committed)
     for name in TPU_KERNELS:
-        launches[name] += api[name] + tree[name] + commit[name] + durable[name]
+        launches[name] += (counted[name] + api[name] + tree[name] + commit[name] + mined[name]
+                           + durable[name])
 
     kernels_line = []
     for name, (source, replaces) in TPU_KERNELS.items():

@@ -4,8 +4,12 @@
 ROUTE_KEYS names the per-query answer routes the port counts
 (`query/compiler.py ROUTE_COUNTS` is built from it); the planner predicts
 one of them per plan (`PlannedProgram.route`, `PlannedTree.route`).  A
-key joins in the slice that brings its route.  PLANNER_KEYS is the planner's telemetry
-(`planner.PLANNER_COUNTS` is built from it):
+key joins in the slice that brings its route.  Counting sites:
+query/compiler.py (the per-query router, and "star" in `count_matches`),
+api/atomspace.py (the batched settle), query/fused.py (settled jobs,
+`count_batch`) and mining/miner.py `count_many` ("star", per star lane).
+PLANNER_KEYS is the planner's telemetry (`planner.PLANNER_COUNTS` is built
+from it):
 
   planned / greedy          conjunctions ordered and seeded by the planner
                             vs the greedy heuristics (off, declined)
@@ -25,6 +29,7 @@ ROUTE_KEYS = (
     "tree",
     "count_kernel",
     "host",
+    "star",
 )
 
 PLANNER_KEYS = (

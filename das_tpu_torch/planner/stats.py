@@ -28,8 +28,9 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from das_tpu_torch.query import starcount
 from das_tpu_torch.query.fused import estimate_plan_rows
-from das_tpu_torch.storage.atom_table import host_probe_locals, host_segments
+from das_tpu_torch.storage.atom_table import host_segments
 
 
 def _probe_degrees(ia, ib, cb):
@@ -42,67 +43,6 @@ def _probe_degrees(ia, ib, cb):
     pos_safe = np.minimum(pos, ib.size - 1)
     match = ib[pos_safe] == ia
     return np.where(match, cb[pos_safe], 0).astype(np.int64)
-
-
-def _host_sparse_deg(db, spec):
-    """((sorted unique values at the shared position, int64 multiplicities),
-    total) of a grounded term, from the host probe; dangling (-1) targets
-    are dropped.  None when the arity has no segment."""
-    arity, type_id, v0_pos, fixed = spec
-    segments = host_segments(db, arity)
-    if not segments:
-        return None
-    chunks = []
-    for b in segments:
-        local = host_probe_locals(b, type_id, fixed)
-        if local.size == 0:
-            continue
-        v0 = b.targets[local, v0_pos]
-        v0 = v0[v0 >= 0]
-        if v0.size:
-            chunks.append(v0)
-    if not chunks:
-        e = np.empty(0, dtype=np.int64)
-        return (e, e), 0
-    idx, cnt = np.unique(np.concatenate(chunks), return_counts=True)
-    cnt = cnt.astype(np.int64)
-    return (idx.astype(np.int64), cnt), int(cnt.sum())
-
-
-def _table_sparse(db, spec):
-    """((sorted unique values, int64 multiplicities), total) of a
-    whole-type term at one position, by run-length over the contiguous
-    (type<<32|target) slice of the sorted key (dangling targets fall
-    outside the slice)."""
-    arity, type_id, v0_pos, _ = spec
-    segments = host_segments(db, arity)
-    if not segments:
-        return None
-    base = np.int64(type_id) << 32
-    parts = []
-    for b in segments:
-        keys = b.key_type_pos[v0_pos]
-        lo = int(np.searchsorted(keys, base, side="left"))
-        hi = int(np.searchsorted(keys, base + (np.int64(1) << 31), side="left"))
-        if hi <= lo:
-            continue
-        vals = keys[lo:hi] - base
-        starts = np.r_[0, np.flatnonzero(np.diff(vals)) + 1]
-        parts.append((vals[starts], np.diff(np.r_[starts, vals.size])))
-    if not parts:
-        return (np.empty(0, np.int64), np.empty(0, np.int64)), 0
-    if len(parts) == 1:
-        idx, cnt = parts[0]
-        return (idx, cnt.astype(np.int64)), int(cnt.sum())
-    allv = np.concatenate([p[0] for p in parts])
-    allc = np.concatenate([p[1] for p in parts]).astype(np.int64)
-    order = np.argsort(allv, kind="stable")
-    sv, sc = allv[order], allc[order]
-    starts = np.r_[0, np.flatnonzero(np.diff(sv)) + 1]
-    csum = np.r_[0, np.cumsum(sc)]
-    bounds = np.r_[starts, sv.size]
-    cnt = csum[bounds[1:]] - csum[bounds[:-1]]
-    return (sv[starts], cnt), int(cnt.sum())
 
 
 class RelEstimate:
@@ -126,7 +66,6 @@ class CardinalityEstimator:
         self.version = db.delta_version
         self._rows: Dict[Tuple, int] = {}
         self._distinct: Dict[Tuple[int, int, int], int] = {}
-        self._supports: Dict[Tuple, object] = {}
 
     @staticmethod
     def _plan_key(plan) -> Tuple:
@@ -172,18 +111,17 @@ class CardinalityEstimator:
         return RelEstimate(float(rows), dv, plan=plan)
 
     def _support(self, plan, var: str):
-        """Sparse degree support of a base term over `var`, or None for
-        shapes without one (templates, repeated variables)."""
+        """Sparse degree support of a base term over `var`, from the star
+        count's host edition (query/starcount.py), whose caches are
+        validated by host-segment identity so a commit invalidates them;
+        None for shapes without one (templates, repeated variables)."""
         if plan.ctype is not None or plan.type_id is None or plan.eq_pairs:
             return None
         pos = plan.var_cols[plan.var_names.index(var)]
         spec = (plan.arity, plan.type_id, pos, tuple(plan.fixed))
-        if spec not in self._supports:
-            self._supports[spec] = (
-                _host_sparse_deg(self.db, spec) if plan.fixed
-                else _table_sparse(self.db, spec)
-            )
-        return self._supports[spec]
+        if plan.fixed:
+            return starcount._host_sparse_deg(self.db, spec)
+        return starcount._table_sparse(self.db, spec)
 
     def exact_join_rows(self, pa, pb, var: str) -> Optional[int]:
         """EXACT rows of a base-term join on ONE shared variable: the

@@ -43,6 +43,7 @@ from das_tpu_torch.query.ast import (
     TypedVariable,
     Variable,
 )
+from das_tpu_torch.query import starcount
 from das_tpu_torch.query.fused import fetch, get_executor, trivial_plan_count
 from das_tpu_torch.storage.tensor_db import TensorDB, _next_capacity
 
@@ -86,7 +87,9 @@ class UnknownAtom(NotCompilable):
 #: "host" = the host algebra (counted by `dispatch`);
 #: "fused_multiway" = a fused answer whose program ran a multiway step
 #: (counted at settle, also for count_matches); "count_kernel" =
-#: count_batch entries whose group ran the hand-written kernels.
+#: count_batch entries whose group ran the hand-written kernels; "star" =
+#: star conjunctions counted by the closed-form fold (query/starcount.py;
+#: counted by `count_matches` and by the miner's `count_many`).
 ROUTE_COUNTS = dict.fromkeys(ROUTE_KEYS, 0)
 
 
@@ -413,15 +416,30 @@ def explain(db, query: LogicalExpression, execute: bool = False,
     return planner.explain(db, query, execute=execute, compile=compile)
 
 
+def count_matches_staged(db: TensorDB, plans: List[TermPlan]) -> int:
+    """The staged pipeline's count for plans the fused path already
+    declined: re-trying the fused executor would only find the same reseed
+    or overflow verdict again, at the cost of another dispatch."""
+    table = execute_plan(db, plans)
+    return 0 if table is None else table.count
+
+
 def count_matches(db: TensorDB, query: LogicalExpression) -> Optional[int]:
     """Exact match count without materializing a conjunction's
-    assignments.  A query outside the conjunctive subset is counted by the
-    tree executor, which materializes (its counts are exact only after the
-    host set's identity); None where the tree executor declines."""
+    assignments: a single term on the host, a star conjunction (one shared
+    variable, the miner's joint) by the closed-form degree fold
+    (query/starcount.py), any other conjunction on the fused executor.  A
+    query outside the conjunctive subset is counted by the tree executor,
+    which materializes (its counts are exact only after the host set's
+    identity); None where the tree executor declines."""
     plans = plan_query(db, query)
     if plans is not None:
         n = trivial_plan_count(db, plans)
         if n is not None:
+            return n
+        n = starcount.try_star_count(db, plans)
+        if n is not None:
+            ROUTE_COUNTS["star"] += 1
             return n
         table = _execute_fused(db, plans, count_only=True)
         if table is None:

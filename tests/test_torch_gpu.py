@@ -676,3 +676,55 @@ def test_snapshot_commits_restore_on_card_equals_cpu(tmp_path):
     queries = batch[0:2] + batch[8:10]      # grounded and Not, a new and an old gene
     assert [card.query(q) for q in queries] == [cpu.query(q) for q in queries]
     assert [card.query(q) for q in queries] == [live.query(q) for q in queries]
+
+
+@pytest.mark.gpu
+def test_miner_star_counts_three_ways_on_card():
+    """The miner on a SMALL store on the card, then its drawn composites
+    with a grounded term and the sub-joints it counted for their scores,
+    each counted three ways: the host star fold, the device fold on the
+    card, and count_batch (the probe and join kernels), what it declines
+    through count_matches_staged.  All equal, and equal to the host fold of
+    the same store on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the device fold and count_batch run on the GPU")
+    from das_tpu_torch.core.config import DasConfig
+    from das_tpu_torch.mining import PatternMiner
+    from das_tpu_torch.models.bio import build_bio_atomspace
+    from das_tpu_torch.query import compiler, starcount
+    from das_tpu_torch.query.ast import Node
+    from das_tpu_torch.query.fused import get_executor
+    from das_tpu_torch.storage.tensor_db import TensorDB
+
+    data, _, _ = build_bio_atomspace(seed=5, **SMALL)
+    card = TensorDB(data, DasConfig(), device="cuda")
+    cpu = TensorDB(data, DasConfig(), device="cpu")
+    miner = PatternMiner(card, halo_length=2, link_rate=0.3, seed=7)
+    batches = []
+    count_many = miner.count_many
+    miner.count_many = lambda qs: batches.append(list(qs)) or count_many(qs)
+    miner.expand_halo([card.get_node_handle("Gene", g)
+                       for g in card.get_all_nodes("Gene", names=True)[:3]])
+    miner.build_patterns()
+    assert miner.mine(ngram=3, epochs=60) is not None and len(batches) == 3
+
+    def grounded(q):
+        return any(isinstance(t, Node) for term in q.terms for t in term.targets)
+
+    queries = list({repr(q): q for q in batches[1] + batches[2] if grounded(q)}.values())
+    assert len(queries) >= 32
+    counts = {}
+    for db, fold in ((cpu, starcount.star_count_many), (card, starcount.star_count_many),
+                     (card, starcount._device_count_group)):
+        lanes = [starcount.plan_star(db, compiler.plan_query(db, q)) for q in queries]
+        counts[db.device.type, fold.__name__] = fold(db, lanes)
+    plans = [compiler.plan_query(card, q) for q in queries]
+    kernels.reset_launch_counts()
+    batch = get_executor(card).count_batch(plans)
+    counts["cuda", "fused"] = [compiler.count_matches_staged(card, p) if n is None else n
+                               for p, n in zip(plans, batch)]
+    assert len(set(map(tuple, counts.values()))) == 1, counts
+    assert sum(n > 0 for n in counts["cpu", "star_count_many"]) >= 8
+    assert kernels.LAUNCH_COUNTS["probe"] > 0
+    assert kernels.LAUNCH_COUNTS["index_join"] + kernels.LAUNCH_COUNTS["join_tables"] \
+        + kernels.LAUNCH_COUNTS["multiway"] > 0

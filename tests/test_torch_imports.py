@@ -1,6 +1,6 @@
 """The port stands alone: no module of das_tpu_torch/ and not
 chip_smoke.py imports JAX or any module of the JAX package das_tpu, nor
-msgpack, which the card machine lacks (pinned by an AST scan), and an
+msgpack or grpc, which the card machine lacks (pinned by an AST scan), and an
 entry point left to its default device
 raises without a CUDA card instead of falling back to the CPU."""
 
@@ -46,6 +46,26 @@ def test_no_msgpack_import(path):
     the card machine, so an import of it would end the run there."""
     for name in _imports(path):
         assert name.split(".")[0] != "msgpack", f"{path.name} imports {name}"
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_grpc_import(path):
+    """grpcio is not installed on the card machine either."""
+    for name in _imports(path):
+        assert name.split(".")[0] != "grpc", f"{path.name} imports {name}"
+
+
+@pytest.mark.parametrize("module", ["das_tpu_torch/query/starcount.py",
+                                    "das_tpu_torch/mining/__init__.py",
+                                    "das_tpu_torch/mining/miner.py"])
+def test_star_and_miner_modules_are_scanned(module):
+    """Star counting and the miner are among the scanned files, and their
+    imports stay inside torch, numpy, the standard library and the port."""
+    assert ROOT / module in _port_files()
+    for name in _imports(ROOT / module):
+        top = name.split(".")[0]
+        assert top in ("torch", "numpy", "das_tpu_torch", "random", "dataclasses",
+                       "itertools", "typing", "__future__"), f"{module} imports {name}"
 
 
 def test_default_device_raises_without_card():

@@ -124,7 +124,7 @@ def test_animals_routes():
     pt.query_answer(_build(ast, ANIMALS[-1]))
     assert compiler.ROUTE_COUNTS == {"fused": 2, "fused_kernel": 0, "fused_multiway": 0,
                                      "fused_tree": 0, "staged": 0, "tree": 1,
-                                     "count_kernel": 0, "host": 0}
+                                     "count_kernel": 0, "host": 0, "star": 0}
 
 
 def _grounded(gene, negate=False):
