@@ -145,7 +145,33 @@ Phases, one JSON line each:
                whole-table joints left out), all equal; the animals KB's
                miner on the card equal to the memory backend's, its
                unordered candidates through the tree executor's kernels;
- 11. durable — last, since it ends the store: the free disk of a new
+ 11. service — on the committed store, attached to a DasService tenant
+               (attach_tenant) and driven through its request dicts, the
+               methods the gRPC servicer adapts (the card machine has no
+               grpc): 8 client threads x 32 DSL queries (96 grounded, 96
+               Not, 48 grounded stars on genes no earlier phase drew, 16
+               exact duplicates) through the tenant's coalescer, every
+               answer equal to serial query()'s, fewer batches than items,
+               >= 2 groups in flight; queries/s, RPC p50 / p99, fetches per
+               query, launches, effective_depth and both EWMAs.  The same
+               traffic traced (spans per name, a Chrome trace written and
+               parsed back, the serving gauges of metrics_text, the
+               worker's span times against the pass's wall), two more
+               pairs of untraced and traced passes (p50 and queries/s of
+               each, the spread) and under a seeded fault plan over
+               settle_fetch, cache_insert, dispatch_enqueue,
+               worker_iteration and submit_queue (every site fired,
+               fault.retries > 0, the same answers but typed submit_queue
+               statuses).  Group k's settle returns while a sleep kernel
+               queued before group k+1 runs (both times printed); a
+               terminal settle failure trips a tenant's breaker (a cached
+               query answers with 0 launches, an uncached one is a
+               breaker_open status, the probe after the cooldown restores
+               service: trips 1, recoveries 1); a queued query behind a
+               sleep kernel comes back as a typed deadline status; one
+               commit with commit_apply injected once lands on retry while
+               queries are in flight, its link in the answers after it;
+ 12. durable — last, since it ends the store: the free disk of a new
                temporary root, then save_snapshot of the committed store
                (wall s, each part's s, each section's bytes), two commits
                of 1,792 atoms with the write-ahead log armed (wall ms beside
@@ -2575,6 +2601,447 @@ def phase_miner(args, das, smi):
 # ---- phase 11 --------------------------------------------------------------------
 
 
+def service_traffic(args, data, genes, host):
+    """256 request strings in the query DSL for phase service: 96 grounded
+    and 96 Not queries and 48 grounded stars, over genes no earlier phase
+    drew, then 16 exact duplicates; and the genes of the grounded part."""
+    gene_names = [data.nodes[h].name for h in genes]
+    used = set(pick_genes(host, gene_names, args.seed))
+
+    def name(r):
+        return data.nodes[host.fin.hex_of_row[r]].name
+
+    fresh = other_genes(host, gene_names, used, args.seed + 41, n=96, n_nonempty=64)
+    rng = random.Random(args.seed + 43)
+    stars = []
+    for g in rng.sample(sorted(set(host.interacts[:, 0].tolist())), 48):
+        x = int(host.partners(g)[0])
+        procs = sorted(host.procs(x).tolist())
+        p1, p2 = procs[-2:] if len(procs) > 1 else (procs[0], procs[0])
+        stars.append((name(g), name(p1), name(p2)))
+
+    def grounded(g, negate):
+        return (f"Node g Gene {g}, Link Member g $V3, Link Member $V2 $V3, "
+                f"Link Interacts g $V2{', NOT' if negate else ''}, AND")
+
+    dsl = [grounded(g, False) for g in fresh] + [grounded(g, True) for g in fresh]
+    dsl += [f"Node p1 BiologicalProcess {p1}, Node p2 BiologicalProcess {p2}, "
+            f"Node g Gene {g}, Link Member $V1 p1, Link Member $V1 p2, "
+            f"Link Interacts g $V1, AND" for g, p1, p2 in stars]
+    dsl += [dsl[i] for i in range(0, 240, 15)]
+    return dsl, fresh
+
+
+def drive_clients(svc, key, dsl, n_clients=8):
+    """`n_clients` threads, each sending its share of `dsl` as query request
+    dicts one after another.  Returns (statuses in dsl order, RPC ms each,
+    wall s)."""
+    import threading
+
+    out = [None] * len(dsl)
+    ms = [None] * len(dsl)
+
+    def client(k):
+        for i in range(k, len(dsl), n_clients):
+            t0 = time.perf_counter()
+            out[i] = svc.query({"key": key, "query": dsl[i]})
+            ms[i] = (time.perf_counter() - t0) * 1e3
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads) or any(s is None for s in out):
+        raise AssertionError("phase service: a client thread did not finish")
+    return out, ms, wall
+
+
+def _pct(values, q):
+    return float(np.percentile(np.asarray(values, dtype=float), q))
+
+
+def worker_split(events, wall_s):
+    """The coalescer worker's time in one traced pass, from its spans:
+    per name the count and summed ms, the settle's own fetch waits
+    (`exec.settle_fetch`, nested in `serve.settle`), its per-query
+    fallbacks, and the share of the pass's wall the worker spent in
+    group, dispatch and settle (the rest is `serve.drain`, which holds
+    its blocking wait for work, and the loop itself)."""
+    out = {"wall_ms": wall_s * 1e3}
+    for name in ("serve.drain", "serve.group", "serve.dispatch", "serve.settle",
+                 "exec.settle_fetch"):
+        durs = [e[3] for e in events if e[0] == name and e[1] == "X"]
+        out[name] = {"n": len(durs), "ms": sum(durs) * 1e3}
+    out["fallbacks"] = sum(int((e[8] or {}).get("fallbacks") or 0)
+                           for e in events if e[0] == "serve.settle")
+    busy = sum(out[n]["ms"] for n in ("serve.group", "serve.dispatch", "serve.settle"))
+    out["worker_busy_share"] = busy / out["wall_ms"]
+    return out
+
+
+def clear_result_caches(das):
+    ex = das.db.dev._fused_executor
+    ex.results.clear()
+    ex.tree_results.clear()
+
+
+def phase_service(args, das, data, genes, host, smi):
+    """The service on the committed store (attach_tenant, no rebuild),
+    driven through DasService's request dicts — the methods the gRPC
+    servicer adapts; the card machine has no grpc.  8 client threads x 32
+    DSL queries (grounded, Not and grounded-star families, 16 exact
+    duplicates) through the tenant's coalescer: every answer equal to
+    serial query()'s, fewer batches than items, >= 2 groups in flight.
+    Then: the same traffic traced (spans per name, a Chrome trace written
+    and read back, the serving gauges in metrics_text, the worker's time
+    split by its spans); two more alternating pairs of untraced and traced
+    passes (p50 off and on, with their spread); the traffic again under a seeded fault plan over the five serving
+    sites (every site fired, fault.retries > 0, answers equal but the
+    typed submit_queue statuses); group k's settle returning while a sleep
+    kernel queued before group k+1 still runs (its own CUDA event); the
+    breaker (a terminal settle failure trips it, a cached query answers
+    with 0 launches, an uncached one is a breaker_open status, the probe
+    restores service: trips 1, recoveries 1); a typed deadline status
+    behind a sleep kernel; and a commit with commit_apply injected once,
+    landing on retry while queries are in flight, its links in the answers
+    after it."""
+    import tempfile
+    import threading
+
+    import torch
+
+    from das_tpu_torch import fault, obs
+    from das_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from das_tpu_torch.query.fused import FETCH_COUNTS
+    from das_tpu_torch.service import protocol
+    from das_tpu_torch.service.query_dsl import parse_query
+    from das_tpu_torch.service.server import DasService
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(TPU_KERNELS, 0)
+    dsl, fresh = service_traffic(args, data, genes, host)
+    parsed = [parse_query(q) for q in dsl]
+    if any(p is None for p in parsed):
+        raise AssertionError("phase service: a DSL query did not parse")
+    t0 = time.perf_counter()
+    want = [das.query(q) for q in parsed]
+    serial_ms = (time.perf_counter() - t0) * 1e3 / len(parsed)
+    if sum(bool(w) for w in want) < 64:
+        raise AssertionError("phase service: too few non-empty answers to prove anything")
+    svc = DasService(backend="tensor")
+    key = svc.attach_tenant("flybase", das)
+
+    def check(statuses, what, typed_ok=()):
+        typed = 0
+        for i, (s, w) in enumerate(zip(statuses, want)):
+            if s["success"] and s["msg"] == w:
+                continue
+            if not s["success"] and any(s["msg"].startswith(p) for p in typed_ok):
+                typed += 1
+                continue
+            raise AssertionError(f"{what}: entry {i} differs from serial query(): {s['msg'][:120]}")
+        return typed
+
+    # -- the coalesced traffic, tracing off --------------------------------------
+    clear_result_caches(das)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    f0 = FETCH_COUNTS["n"]
+    statuses, rpc_ms, wall = drive_clients(svc, key, dsl)
+    torch.cuda.synchronize()
+    launches = {k: LAUNCH_COUNTS[k] for k in TPU_KERNELS}
+    fetches = FETCH_COUNTS["n"] - f0
+    check(statuses, "coalesced traffic")
+    idle = [k for k in ("probe", "index_join", "join_tables", "anti_join") if not launches[k]]
+    if idle:
+        raise AssertionError(f"phase service launched no {idle}")
+    stats = svc.coalescer_stats()
+    if not stats["batches"] < stats["items"] == len(dsl) or stats["inflight_peak"] < 2:
+        raise AssertionError(f"phase service did not coalesce and pipeline: {stats}")
+    for k in TPU_KERNELS:
+        total[k] += launches[k]
+    coalesced = {
+        "queries": len(dsl), "clients": 8, "wall_s": wall, "qps": len(dsl) / wall,
+        "rpc_p50_ms": _pct(rpc_ms, 50), "rpc_p99_ms": _pct(rpc_ms, 99),
+        "serial_query_ms": serial_ms, "host_fetches": fetches,
+        "fetches_per_query": fetches / len(dsl), "launches": launches,
+        "batches": stats["batches"], "items": stats["items"], "max_batch": stats["max_batch"],
+        "inflight_peak": stats["inflight_peak"], "effective_depth": stats["effective_depth"],
+        "rtt_ewma_ms": stats["rtt_ewma_ms"], "dispatch_ewma_ms": stats["dispatch_ewma_ms"],
+        "speculative_dispatches": stats["speculative_dispatches"],
+        "early_settles": stats["early_settles"],
+    }
+
+    # -- the same traffic traced --------------------------------------------------
+    clear_result_caches(das)
+    obs.reset()
+    obs.configure(enabled=True)
+    reset_launch_counts()
+    try:
+        traced, traced_ms, traced_wall = drive_clients(svc, key, dsl)
+        for k in TPU_KERNELS:
+            total[k] += LAUNCH_COUNTS[k]
+        check(traced, "traced traffic")
+        events = obs.events()
+        spans = {}
+        for e in events:
+            spans[e[0]] = spans.get(e[0], 0) + 1
+        for name in ("serve.submit", "serve.drain", "serve.group", "serve.plan",
+                     "serve.dispatch", "serve.settle", "serve.answer", "exec.dispatch",
+                     "exec.settle_fetch", "exec.materialize", "cache.miss"):
+            if not spans.get(name):
+                raise AssertionError(f"phase service: no {name} span in the trace")
+        tmp = tempfile.mkdtemp(prefix="das_trace_")
+        try:
+            path = obs.dump_chrome_trace(events, os.path.join(tmp, "trace.json"))
+            with open(path) as f:
+                back = json.load(f)
+            trace_bytes = os.path.getsize(path)
+        finally:
+            import shutil
+
+            shutil.rmtree(tmp, ignore_errors=True)
+        n_x = sum(1 for e in back["traceEvents"] if e["ph"] in ("X", "i"))
+        if n_x != len(events):
+            raise AssertionError(f"chrome trace holds {n_x} events of {len(events)}")
+        text = svc.metrics_text()
+        gauges = ("serving_batches", "serving_items", "serving_inflight_peak",
+                  "serving_effective_depth", "serving_rtt_ewma_ms", "serving_dispatch_ewma_ms")
+        missing = [g for g in gauges if f"das_tpu_obs_{g} " not in text]
+        if missing or f"das_tpu_obs_serve_answers_total {len(dsl)}" not in text:
+            raise AssertionError(f"metrics_text lacks {missing} or the answer count")
+        tracing = {"p50_off_ms": coalesced["rpc_p50_ms"], "p50_on_ms": _pct(traced_ms, 50),
+                   "p99_on_ms": _pct(traced_ms, 99), "events": len(events),
+                   "spans": spans, "chrome_trace_bytes": trace_bytes,
+                   "answer_ms_p50": obs.histogram("serve.answer_ms").percentile(0.5),
+                   "worker": worker_split(events, traced_wall)}
+
+        # -- the off / on spread: two more pairs of passes, alternating ----------
+        p50s = {"off": [coalesced["rpc_p50_ms"]], "on": [tracing["p50_on_ms"]]}
+        qps = {"off": [coalesced["qps"]], "on": [len(dsl) / traced_wall]}
+        for _ in range(2):
+            for mode in ("off", "on"):
+                clear_result_caches(das)
+                obs.reset()
+                obs.configure(enabled=mode == "on")
+                reset_launch_counts()
+                repeat, repeat_ms, repeat_wall = drive_clients(svc, key, dsl)
+                for k in TPU_KERNELS:
+                    total[k] += LAUNCH_COUNTS[k]
+                check(repeat, f"repeated traffic, tracing {mode}")
+                p50s[mode].append(_pct(repeat_ms, 50))
+                qps[mode].append(len(dsl) / repeat_wall)
+        obs.configure(enabled=True)
+        tracing.update(p50_off_passes_ms=p50s["off"], p50_on_passes_ms=p50s["on"],
+                       qps_off_passes=qps["off"], qps_on_passes=qps["on"])
+
+        # -- chaos: the traffic under a seeded plan over the serving sites -------
+        sites = ("settle_fetch", "cache_insert", "dispatch_enqueue", "worker_iteration",
+                 "submit_queue")
+        clear_result_caches(das)
+        obs.reset()
+        fault.reset_counts()
+        reset_launch_counts()
+        fault.configure(f"seed={args.seed + 7};sites={','.join(sites)};rate=0.1;max=6")
+        try:
+            chaos, chaos_ms, chaos_wall = drive_clients(svc, key, dsl)
+        finally:
+            fault.configure(None)
+        for k in TPU_KERNELS:
+            total[k] += LAUNCH_COUNTS[k]
+        typed = check(chaos, "chaos traffic", typed_ok=("injected fault at site 'submit_queue'",))
+        fired = {s: fault.INJECT_COUNTS[s] for s in sites}
+        retries = obs.counter("fault.retries").value
+        if min(fired.values()) == 0 or retries == 0:
+            raise AssertionError(f"chaos: sites fired {fired}, fault.retries {retries}")
+        if typed != fired["submit_queue"]:
+            raise AssertionError(f"chaos: {typed} typed statuses for {fired['submit_queue']} "
+                                 "submit_queue injections")
+        chaos_out = {"spec_rate": 0.1, "fired": fired, "retries": retries,
+                     "typed_submit_statuses": typed, "qps": len(dsl) / chaos_wall,
+                     "rpc_p50_ms": _pct(chaos_ms, 50), "rpc_p99_ms": _pct(chaos_ms, 99)}
+    finally:
+        fault.configure(None)
+        obs.configure(enabled=False)
+        obs.reset()
+
+    # -- group k's settle waits on its own event, not on group k+1 ---------------
+    cfg = das.db.config
+    size, cfg.result_cache_size = cfg.result_cache_size, 0
+    try:
+        group_k = [parsed[i] for i in range(16) if want[i]]
+        group_k1 = parsed[16:32]
+        want_k = [w for w in want[:16] if w]
+        das.query_many(group_k)           # capacities learned: one round each
+        das.query_many(group_k1)
+        reset_launch_counts()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        job_k = das.query_many_dispatch(group_k)
+        torch.cuda._sleep(1_000_000_000)
+        job_k1 = das.query_many_dispatch(group_k1)
+        got_k = [a for _i, a in sorted(job_k.settle_iter(), key=lambda x: x[0])]
+        settle_k_ms = (time.perf_counter() - t0) * 1e3
+        got_k1 = job_k1.settle()
+        torch.cuda.synchronize()
+        sleep_end_ms = (time.perf_counter() - t0) * 1e3
+        for k in TPU_KERNELS:
+            total[k] += LAUNCH_COUNTS[k]
+    finally:
+        cfg.result_cache_size = size
+    if got_k != want_k or got_k1 != want[16:32]:
+        raise AssertionError("pipelined groups: answers differ from serial query()")
+    if settle_k_ms * 4 > sleep_end_ms:
+        raise AssertionError(f"group k's settle waited for group k+1: {settle_k_ms} ms of "
+                             f"{sleep_end_ms}")
+    print(f"service pipelining: group k settled at {settle_k_ms:.3f} ms, the sleep kernel "
+          f"before group k+1 ended at {sleep_end_ms:.3f} ms", flush=True)
+
+    # -- the breaker: a terminal settle failure trips it --------------------------
+    saved = (cfg.breaker_failure_threshold, cfg.breaker_cooldown_ms)
+    cfg.breaker_failure_threshold, cfg.breaker_cooldown_ms = 1, 400
+    try:
+        bkey = svc.attach_tenant("breaker", das)
+        svc.query({"key": bkey, "query": dsl[0]})     # creates its coalescer
+    finally:
+        cfg.breaker_failure_threshold, cfg.breaker_cooldown_ms = saved
+    hot, trip, cold = dsl[1], dsl[2], dsl[3]
+    clear_result_caches(das)
+    if svc.query({"key": bkey, "query": hot})["msg"] != want[1]:
+        raise AssertionError("breaker: the hot query's first answer differs")
+    fault.configure("seed=9;sites=settle_fetch;every=1;max=1000")
+    try:
+        tripped = svc.query({"key": bkey, "query": trip})
+    finally:
+        fault.configure(None)
+    bstats = svc.coalescer_stats()["tenants"]["breaker"]
+    if tripped["msg"] != want[2] or bstats["breaker_state"] != "open":
+        raise AssertionError(f"breaker: not open after a terminal settle failure: {bstats}")
+    reset_launch_counts()
+    hot_again = svc.query({"key": bkey, "query": hot})
+    hot_launches = sum(LAUNCH_COUNTS.values())
+    rejected = svc.query({"key": bkey, "query": cold})
+    hint = protocol.parse_retryable(rejected["msg"])
+    if hot_again["msg"] != want[1] or hot_launches:
+        raise AssertionError(f"breaker: cached query under an open breaker: {hot_launches} "
+                             "launches or a different answer")
+    if hint is None or hint["kind"] != "breaker_open":
+        raise AssertionError(f"breaker: the uncached query was not rejected typed: {rejected}")
+    time.sleep(0.45)
+    reset_launch_counts()
+    probe = svc.query({"key": bkey, "query": cold})
+    for k in TPU_KERNELS:
+        total[k] += LAUNCH_COUNTS[k]
+    bstats = svc.coalescer_stats()["tenants"]["breaker"]
+    if probe["msg"] != want[3] or (bstats["breaker_trips"], bstats["breaker_recoveries"]) != (1, 1):
+        raise AssertionError(f"breaker: the probe did not restore service: {bstats}")
+    breaker = {"trips": bstats["breaker_trips"], "recoveries": bstats["breaker_recoveries"],
+               "rejections": bstats["breaker_rejections"], "hot_launches": hot_launches,
+               "retry_after_ms": hint["retry_after_ms"], "state": bstats["breaker_state"]}
+
+    # -- a deadline behind a sleep kernel -----------------------------------------
+    saved = (cfg.query_deadline_ms, cfg.coalesce_max_batch, cfg.pipeline_depth)
+    cfg.query_deadline_ms, cfg.coalesce_max_batch, cfg.pipeline_depth = 100, 1, 1
+    try:
+        dkey = svc.attach_tenant("deadline", das)
+        svc.query({"key": dkey, "query": dsl[4]})     # creates its coalescer
+    finally:
+        cfg.query_deadline_ms, cfg.coalesce_max_batch, cfg.pipeline_depth = saved
+    clear_result_caches(das)
+    reset_launch_counts()
+    dl = {}
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000_000)
+    first = threading.Thread(target=lambda: dl.setdefault(
+        "first", svc.query({"key": dkey, "query": dsl[5]})), daemon=True)
+    first.start()
+    time.sleep(0.03)
+    late = svc.query({"key": dkey, "query": dsl[6]})
+    first.join(timeout=60)
+    torch.cuda.synchronize()
+    for k in TPU_KERNELS:
+        total[k] += LAUNCH_COUNTS[k]
+    dhint = protocol.parse_retryable(late["msg"])
+    if dhint is None or dhint["kind"] != "deadline":
+        raise AssertionError(f"deadline: the queued query was not a typed deadline: {late}")
+    if dl.get("first", {}).get("msg") != want[5]:
+        raise AssertionError("deadline: the dispatched query's late answer differs")
+    deadline = {"deadline_ms": 100, "status": late["msg"].split(" ")[1],
+                "expired": svc.coalescer_stats()["tenants"]["deadline"]["deadline_expired"]}
+
+    # -- a commit under load, commit_apply injected once -------------------------
+    g = fresh[0]
+    tx = das.open_transaction()
+    tx.add(f'(: "{g}" Gene)')
+    tx.add('(: "GENE:served" Gene)')
+    tx.add(f'(Interacts "{g}" "GENE:served")')
+    version = das.db.delta_version
+    stop = threading.Event()
+    during = []
+
+    def load():
+        i = 64
+        while not stop.is_set():
+            during.append((i % 240, svc.query({"key": key, "query": dsl[i % 240]})))
+            i += 1
+
+    clear_result_caches(das)
+    reset_launch_counts()
+    loaders = [threading.Thread(target=load, daemon=True) for _ in range(4)]
+    for t in loaders:
+        t.start()
+    time.sleep(0.05)
+    fault.reset_counts()
+    fault.configure("seed=3;sites=commit_apply;every=1;max=1")
+    try:
+        with svc.tenants[key].lock:
+            das.commit_transaction(tx)
+    finally:
+        fault.configure(None)
+    time.sleep(0.05)
+    stop.set()
+    for t in loaders:
+        t.join(timeout=60)
+    for k in TPU_KERNELS:
+        total[k] += LAUNCH_COUNTS[k]
+    if fault.INJECT_COUNTS["commit_apply"] != 1 or das.db.delta_version != version + 1:
+        raise AssertionError("commit under load: the injected commit did not land on retry")
+    # the commit adds an Interacts link to a gene without Member links: no
+    # answer of the traffic changes, whichever side of the swap it lands
+    bad = [i for i, s in during if not s["success"] or s["msg"] != want[i]]
+    if bad or not during:
+        raise AssertionError(f"commit under load: {len(bad)} of {len(during)} answers differ")
+    new = das.db.get_node_handle("Gene", "GENE:served")
+    after = svc.query({"key": key, "query": f"Node g Gene {g}, Link Interacts g $V2"})
+    if new not in after["msg"] or after["msg"] != das.query(
+            parse_query(f"Node g Gene {g}, Link Interacts g $V2")):
+        raise AssertionError("commit under load: the new link is not in the answer")
+    commit = {"queries_during": len(during), "injected": 1, "delta_version": das.db.delta_version}
+
+    line = {
+        "phase": "service", "card": smi, "coalesced": coalesced, "tracing": tracing,
+        "chaos": chaos_out,
+        "pipelining": {"settle_k_ms": settle_k_ms, "sleep_end_ms": sleep_end_ms},
+        "breaker": breaker, "deadline": deadline, "commit": commit, "launches": total,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(line)
+    print(f"service: {coalesced['qps']:.1f} queries/s, RPC p50 {coalesced['rpc_p50_ms']:.3f} ms "
+          f"p99 {coalesced['rpc_p99_ms']:.3f} ms, {coalesced['fetches_per_query']:.4f} fetches "
+          f"per query, launches {launches}, effective_depth {coalesced['effective_depth']}, "
+          f"rtt_ewma_ms {coalesced['rtt_ewma_ms']}, dispatch_ewma_ms "
+          f"{coalesced['dispatch_ewma_ms']}; RPC p50 with tracing off "
+          f"{[round(p, 3) for p in tracing['p50_off_passes_ms']]} ms, on "
+          f"{[round(p, 3) for p in tracing['p50_on_passes_ms']]} ms; the worker busy "
+          f"{tracing['worker']['worker_busy_share']:.4f} of the traced pass", flush=True)
+    return total
+
+
 def host_tables(db):
     """Host copies of every device table of a store: the CSR, and per
     bucket its size, capacity, every column, posting key and perm."""
@@ -3121,6 +3588,7 @@ def main(argv=None) -> int:
     tree = phase_tree(args, das, data, genes, host, (ldas, ldata, lgenes), smi)
     commit, committed = phase_commit(args, das, data, genes, host, smi, upload_s, slice_p50)
     mined = phase_miner(args, das, smi)
+    served = phase_service(args, das, data, genes, host, smi)
     # the durable phase drops the store: this frame keeps no reference to it
     holder = {"das": das}
     del das
@@ -3128,7 +3596,7 @@ def main(argv=None) -> int:
                             {"build_s": build_s, "finalize_upload_s": upload_s}, committed)
     for name in TPU_KERNELS:
         launches[name] += (counted[name] + api[name] + tree[name] + commit[name] + mined[name]
-                           + durable[name])
+                           + served[name] + durable[name])
 
     kernels_line = []
     for name, (source, replaces) in TPU_KERNELS.items():

@@ -22,6 +22,10 @@ it writes the first generation and logs every commit.
 `save_checkpoint` / `load_checkpoint` a flat checkpoint directory, and
 `config.checkpoint_path` is loaded at construction.
 
+Serving (das_tpu_torch/service/): the coalescer drives
+`query_many_dispatch(..., cache_only=)` and `settle_iter`; planning a
+batch is the `serve.plan` span of obs/.
+
 Not ported yet: the sharded backend and its sharded checkpoint, the
 canonical loader."""
 
@@ -98,11 +102,15 @@ class _QueryManyJob:
         self.db_ref = das.db
         self.version = getattr(das.db, "delta_version", None)
         if hasattr(das.db, "dev") and queries:
-            for i, q in enumerate(queries):
-                plans = query_compiler.plan_query(das.db, q)
-                if plans is not None:
-                    self.plans_lists.append(plans)
-                    self.idxs.append(i)
+            from das_tpu_torch import obs
+
+            with obs.span("serve.plan", queries=len(queries)) as sp:
+                for i, q in enumerate(queries):
+                    plans = query_compiler.plan_query(das.db, q)
+                    if plans is not None:
+                        self.plans_lists.append(plans)
+                        self.idxs.append(i)
+                sp.set(compilable=len(self.plans_lists))
             if self.plans_lists:
                 self.pending = query_compiler.execute_fused_many_dispatch(
                     das.db, self.plans_lists, cache_only=cache_only)

@@ -29,7 +29,18 @@ and written otherwise, with the write-ahead delta log always armed under
 it; `snapshot_keep` bounds
 the generations that survive pruning; `cap_store_dir` is the directory of
 the learned-capacity files (query/fused.py `CapStore`), None = kept in
-memory only.  None of them is read from the environment."""
+memory only.  None of them is read from the environment.
+
+Serving (service/coalesce.py, service/server.py), with `das_tpu`'s
+defaults: `coalesce_max_batch`, `pipeline_depth`, `pipeline_depth_max`,
+`coalesce_queue_max`, `query_deadline_ms`, `breaker_failure_threshold`,
+`breaker_cooldown_ms`.  The switches `das_tpu` reads from its environment
+are not fields: the fault plan and the trace recorder are process-wide
+and set only by `fault.configure(spec)` (DAS_TPU_FAULT) and
+`obs.configure(enabled=, capacity=)` (DAS_TPU_TRACE, DAS_TPU_TRACE_RING);
+the metrics port is `transport.serve(metrics_port=)`
+(DAS_TPU_METRICS_PORT); query RPCs are always coalesced
+(DAS_TPU_COALESCE)."""
 
 from __future__ import annotations
 
@@ -70,3 +81,21 @@ class DasConfig:
     # directory of the learned-capacity files (query/fused.py CapStore);
     # None keeps them in memory only
     cap_store_dir: Optional[str] = None
+
+    # -- serving edge (service/coalesce.py) --------------------------------
+    # widest batch one coalescer drain may form
+    coalesce_max_batch: int = 256
+    # floor of the in-flight dispatch window (1 = serial batches)
+    pipeline_depth: int = 2
+    # ceiling of the adaptive window ceil(settle_rtt / dispatch_cost)
+    pipeline_depth_max: int = 8
+    # submit-queue bound: past it submit() rejects with
+    # CoalescerSaturatedError (0 = unbounded)
+    coalesce_queue_max: int = 8192
+    # per-query serving deadline in ms (0 = off)
+    query_deadline_ms: int = 0
+    # consecutive retryable settle failures (or saturation rejections)
+    # that trip a tenant's circuit breaker (0 = no breaker)
+    breaker_failure_threshold: int = 8
+    # how long an open breaker waits before one half-open probe
+    breaker_cooldown_ms: int = 250

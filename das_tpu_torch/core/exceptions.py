@@ -28,6 +28,37 @@ class CapacityOverflowError(DasError):
     larger capacity or falls back to the host algebra."""
 
 
+class CoalescerSaturatedError(DasError):
+    """The serving coalescer's submit queue is at its bound
+    (DasConfig.coalesce_queue_max, service/coalesce.py): the request was
+    rejected instead of growing host memory without limit; retry later."""
+
+
+class InjectedFault(DasError):
+    """A deterministic injected failure (fault.maybe_fail) at a declared
+    FAULT_SITES seam: typed so that a chaos run tells injection from a
+    real fault, retryable (unless `retryable=False`) so that it exercises
+    the recovery a transient failure would."""
+
+    def __init__(self, site: str, call: int, retryable: bool = True):
+        self.site = site
+        self.call = call
+        self.retryable = retryable
+        super().__init__(f"injected fault at site '{site}' (call {call})")
+
+
+class DasDeadlineError(DasError):
+    """A query passed its deadline (DasConfig.query_deadline_ms): expired
+    by the coalescer worker while queued or grouped, abandoned at settle,
+    or timed out at the bounded RPC wait (service/server.py).  Retryable:
+    the answer was not delivered in time."""
+
+    def __init__(self, msg: str = "query deadline exceeded",
+                 deadline_ms: float = 0.0):
+        self.deadline_ms = deadline_ms
+        super().__init__(msg)
+
+
 class BreakerOpenError(DasError):
     """A batch dispatched in degraded mode (`query_many_dispatch(...,
     cache_only=True)`): cache hits are answered, but this query needed a

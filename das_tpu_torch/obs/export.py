@@ -1,0 +1,105 @@
+"""Trace and metric exporters (port of `das_tpu/obs/export.py`): Chrome
+trace-event JSON (Perfetto-loadable) and Prometheus text exposition.
+
+Chrome trace format (the subset Perfetto ingests): one "X" complete
+event per span and one "i" instant event per point event, timestamps
+and durations in MICROseconds, `pid` = the tenant lane and `tid` = the
+recording thread — so the Perfetto timeline renders one process row
+per tenant with one track per worker/RPC thread, and the submit →
+drain → dispatch → settle → answer cascade reads left-to-right on the
+worker track.  "M" metadata events name the lanes/threads; trace and
+group ids ride in `args` so a flow can be followed by query.
+
+Prometheus text exposition (the service/server.py hook): counters as
+`das_tpu_obs_<name>_total`, histograms in the native histogram triple
+(`_bucket{le=...}` cumulative, `_sum`, `_count`) — scrape-ready,
+derivable p50/p95/p99 via `histogram_quantile`.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Dict, List, Optional, Tuple
+
+from das_tpu_torch.obs import metrics as _metrics
+
+
+def chrome_trace(events: List[Tuple]) -> Dict:
+    """Render recorder event tuples (TraceRecorder.events()) into a
+    Chrome trace-event dict — `json.dumps` of it loads in Perfetto /
+    chrome://tracing."""
+    lanes: Dict[Optional[str], int] = {}
+    threads: Dict[str, int] = {}
+    out: List[Dict] = []
+    for name, phase, t0, dur, trace, group, lane, thread, attrs in events:
+        pid = lanes.setdefault(lane, len(lanes) + 1)
+        tid = threads.setdefault(thread, len(threads) + 1)
+        args = dict(attrs) if attrs else {}
+        if trace:
+            args["trace"] = trace
+        if group:
+            args["group"] = group
+        ev = {
+            "name": name,
+            "ph": phase,
+            "ts": round(t0 * 1e6, 3),
+            "pid": pid,
+            "tid": tid,
+            "args": args,
+        }
+        if phase == "X":
+            ev["dur"] = round(dur * 1e6, 3)
+        else:
+            ev["s"] = "t"  # thread-scoped instant
+        out.append(ev)
+    meta: List[Dict] = []
+    for lane, pid in lanes.items():
+        meta.append({
+            "name": "process_name", "ph": "M", "pid": pid, "tid": 0,
+            "args": {"name": lane or "das_tpu"},
+        })
+    for thread, tid in threads.items():
+        for pid in lanes.values():
+            meta.append({
+                "name": "thread_name", "ph": "M", "pid": pid, "tid": tid,
+                "args": {"name": thread},
+            })
+    return {"traceEvents": meta + out, "displayTimeUnit": "ms"}
+
+
+def dump_chrome_trace(events: List[Tuple], path: str) -> str:
+    """Write the Perfetto-loadable JSON to `path`; returns the path."""
+    with open(path, "w") as f:
+        json.dump(chrome_trace(events), f)
+    return path
+
+
+def _prom_name(name: str) -> str:
+    return "das_tpu_obs_" + name.replace(".", "_").replace("-", "_")
+
+
+def prometheus_text(extra_gauges: Optional[Dict[str, float]] = None) -> str:
+    """The metric layer in Prometheus text exposition format.  The
+    serving facade (service/server.py metrics_text) folds its aggregate
+    coalescer gauges in via `extra_gauges` — one scrape surface for the
+    whole serving path."""
+    lines: List[str] = []
+    for name, c in sorted(_metrics.COUNTERS.items()):
+        pn = _prom_name(name) + "_total"
+        lines.append(f"# TYPE {pn} counter")
+        lines.append(f"{pn} {c.value}")
+    for name, h in sorted(_metrics.HISTOGRAMS.items()):
+        pn = _prom_name(name)
+        lines.append(f"# TYPE {pn} histogram")
+        cum = 0
+        for upper, count in h.nonzero_buckets():
+            cum += count
+            lines.append(f'{pn}_bucket{{le="{upper:g}"}} {cum}')
+        lines.append(f'{pn}_bucket{{le="+Inf"}} {h.total}')
+        lines.append(f"{pn}_sum {h.sum_ms:g}")
+        lines.append(f"{pn}_count {h.total}")
+    for name, value in sorted((extra_gauges or {}).items()):
+        pn = _prom_name(name)
+        lines.append(f"# TYPE {pn} gauge")
+        lines.append(f"{pn} {value:g}")
+    return "\n".join(lines) + "\n"

@@ -70,8 +70,19 @@ def observe_settle(planned, actual_join_rows, rounds: int) -> None:
         PLANNER_COUNTS["round0"] += 1
     else:
         PLANNER_COUNTS["retries"] += rounds - 1
-    PLANNER_COUNTS["est_rows"] += sum(int(r) for r in planned.est_join_rows)
-    PLANNER_COUNTS["actual_rows"] += sum(int(r) for r in actual_join_rows)
+    est = sum(int(r) for r in planned.est_join_rows)
+    act = sum(int(r) for r in actual_join_rows)
+    PLANNER_COUNTS["est_rows"] += est
+    PLANNER_COUNTS["actual_rows"] += act
+    from das_tpu_torch import obs
+
+    if obs.enabled():
+        obs.event(
+            "planner.observe", est_rows=est, actual_rows=act,
+            per_step_est=list(planned.est_join_rows),
+            per_step_actual=[int(r) for r in actual_join_rows],
+            retry_rounds=rounds - 1,
+        )
 
 
 # re-exports: the public planner surface

@@ -344,22 +344,26 @@ def execute_fused_many(db: TensorDB,
 def materialize(db: TensorDB, table: Optional[BindingTable],
                 answer: PatternMatchingAnswer) -> bool:
     """Convert a device binding table into frozen OrderedAssignments."""
+    from das_tpu_torch import obs
+
     if table is None or table.count == 0:
         return False
-    if table.host_vals is not None:
-        vals, valid = table.host_vals, table.host_valid
-    else:
-        vals, valid = fetch(table.vals, table.valid)
-    hexes = db.fin.hex_of_row
-    for row in vals[valid]:
-        a = OrderedAssignment()
-        ok = True
-        for name, val in zip(table.var_names, row):
-            if not a.assign(name, hexes[int(val)]):
-                ok = False
-                break
-        if ok and a.freeze():
-            answer.assignments.add(a)
+    with obs.span("exec.materialize", rows=table.count,
+                  prefetched=table.host_vals is not None):
+        if table.host_vals is not None:
+            vals, valid = table.host_vals, table.host_valid
+        else:
+            vals, valid = fetch(table.vals, table.valid)
+        hexes = db.fin.hex_of_row
+        for row in vals[valid]:
+            a = OrderedAssignment()
+            ok = True
+            for name, val in zip(table.var_names, row):
+                if not a.assign(name, hexes[int(val)]):
+                    ok = False
+                    break
+            if ok and a.freeze():
+                answer.assignments.add(a)
     return bool(answer.assignments)
 
 

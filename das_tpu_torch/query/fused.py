@@ -15,6 +15,14 @@ one stats vector
 that comes back in ONE host fetch per retry round (`FETCH_COUNTS`).  On
 overflow the capacities double and the plan re-runs.
 
+A round's host copies are queued right behind its kernels, into pinned
+buffers, with a CUDA event recorded after them (`stage_many`); its settle
+waits on that event alone (`_Staged.wait`), never on the stream, so a
+batch settled while a later batch's kernels run does not wait for them.
+A settle fetch retries on `fault.fetch_retry()` (a retry re-issues the
+copies into fresh buffers), and `fault.maybe_fail("settle_fetch")` marks
+it as a seam; the dispatch halves hold no seam.
+
 The cost-based planner (das_tpu_torch/planner/, `DasConfig.use_planner`)
 fixes the join order and the capacity seed of every step; when it declines
 or is off, the greedy `order_plans` and the blind seeds apply.  The planner
@@ -63,7 +71,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from das_tpu_torch import kernels
+from das_tpu_torch import fault, kernels, obs
 from das_tpu_torch.ops.join import dedup_table
 from das_tpu_torch.ops.posting import search
 from das_tpu_torch.storage.atom_table import host_probe_locals, host_segments
@@ -604,31 +612,82 @@ def run_exact(sig: FusedExactSig, bucket_arrays, keys, fixed_vals, count_only: b
     return final_vals, final_valid & ~any_pos_empty, stats
 
 
-def fetch_many(groups) -> List[List[np.ndarray]]:
-    """ONE host fetch of every tensor of `groups` (a sequence of tensor
-    tuples, e.g. the outputs of a batch's dispatched jobs): every copy is
-    queued into pinned memory without blocking, then the stream is
-    synchronized once.  Returns the host arrays group by group."""
-    FETCH_COUNTS["n"] += 1
+class _Staged:
+    """The host copies of one round's output tensors (a sequence of tensor
+    tuples, e.g. the outputs of a batch's dispatched jobs): on the card,
+    non-blocking copies into pinned buffers queued right behind the
+    kernels that write the tensors, and the CUDA event recorded after
+    them; on the CPU, the tensors themselves."""
+
+    __slots__ = ("groups", "pinned", "event")
+
+    def __init__(self, groups, pinned, event):
+        self.groups = groups
+        self.pinned = pinned
+        self.event = event
+
+    def wait(self) -> List[List[np.ndarray]]:
+        """The host arrays group by group, once this round's copies have
+        landed: waits on the round's own event, not on the stream, so work
+        queued after the copies is not waited for."""
+        if self.event is None:
+            host = [t.numpy() for g in self.groups for t in g]
+        else:
+            self.event.synchronize()
+            host = [h.numpy() for h in self.pinned]
+        out, k = [], 0
+        for g in self.groups:
+            out.append(host[k:k + len(g)])
+            k += len(g)
+        return out
+
+
+def stage_many(groups) -> _Staged:
+    """Queue the host copies of every tensor of `groups` without waiting
+    (see `_Staged`).  Called right after the kernels of a round, before
+    anything else is queued, so the round's event follows its own work
+    only."""
     flat_in = [t for g in groups for t in g]
     if not flat_in or flat_in[0].device.type != "cuda":
-        host = [t.numpy() for t in flat_in]
-    else:
-        pinned = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in flat_in]
-        for h, t in zip(pinned, flat_in):
-            h.copy_(t, non_blocking=True)
-        torch.cuda.current_stream(flat_in[0].device).synchronize()
-        host = [h.numpy() for h in pinned]
-    out, k = [], 0
-    for g in groups:
-        out.append(host[k:k + len(g)])
-        k += len(g)
-    return out
+        return _Staged(groups, None, None)
+    pinned = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in flat_in]
+    for h, t in zip(pinned, flat_in):
+        h.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(flat_in[0].device))
+    return _Staged(groups, pinned, event)
+
+
+def fetch_many(groups) -> List[List[np.ndarray]]:
+    """ONE host fetch of every tensor of `groups`: the copies are queued
+    into pinned memory without blocking, then their event is waited on
+    once.  Returns the host arrays group by group."""
+    FETCH_COUNTS["n"] += 1
+    return stage_many(groups).wait()
 
 
 def fetch(*tensors) -> List[np.ndarray]:
     """ONE host fetch of device tensors (`fetch_many` of one group)."""
     return fetch_many([tensors])[0]
+
+
+def retried_fetch(staged: _Staged) -> List[List[np.ndarray]]:
+    """A settle fetch of a staged round through `fault.fetch_retry()`:
+    every attempt counts one host fetch, and a retry re-issues the copies
+    into fresh pinned buffers instead of reading the ones it gave up on."""
+    box = [staged]
+
+    def attempt():
+        FETCH_COUNTS["n"] += 1
+        fault.maybe_fail("settle_fetch")
+        if box[0] is None:
+            box[0] = stage_many(staged.groups)
+        return box[0].wait()
+
+    def restage(_attempt, _exc):
+        box[0] = None
+
+    return fault.fetch_retry().run(attempt, on_retry=restage)
 
 
 class ResultCache:
@@ -641,7 +700,8 @@ class ResultCache:
     stable within a version, so a hit is the cached `FusedResult`
     (device tensors and the host copies fetched with them) with no device
     work and no host fetch.  A version change clears the cache and
-    counts one invalidation.  Entries are LRU-bounded by
+    counts one invalidation (obs/ records each hit, miss and
+    invalidation as a `cache.*` event and counter).  Entries are LRU-bounded by
     `config.result_cache_size` (0 disables the cache); reseed-flagged
     results are never cached, nor a table wider than `MAX_ENTRY_ROWS`
     elements, which would pin that much device and host memory."""
@@ -679,6 +739,9 @@ class ResultCache:
         if v != self._version:
             if self._data:
                 self.stats["invalidations"] += 1
+                if obs.enabled():
+                    obs.event("cache.invalidate", entries=len(self._data), version=v)
+                    obs.counter("cache.invalidations").inc()
             self._data.clear()
             self._version = v
 
@@ -690,15 +753,29 @@ class ResultCache:
             hit = self._data.get(key)
             if hit is None:
                 self.stats["misses"] += 1
+                if obs.enabled():
+                    obs.event("cache.miss")
+                    obs.counter("cache.misses").inc()
                 return None
             self._data.move_to_end(key)
             self.stats["hits"] += 1
+            if obs.enabled():
+                obs.event("cache.hit", count=getattr(hit, "count", None))
+                obs.counter("cache.hits").inc()
             return hit
 
     def put(self, key, result, version) -> None:
         """`version` is the delta_version the caller DISPATCHED against: a
         store committed to between dispatch and settle must not get a
-        result of the old store cached under the new version."""
+        result of the old store cached under the new version.  A failed
+        insert (the `cache_insert` seam) leaves the result uncached; the
+        query does not see it."""
+        from das_tpu_torch.core.exceptions import InjectedFault
+
+        try:
+            fault.maybe_fail("cache_insert")
+        except InjectedFault:
+            return
         limit = self.limit()
         if limit <= 0 or result is None or getattr(result, "reseed_needed", False):
             return
@@ -845,7 +922,17 @@ class _ExecJob:
         self.rounds += 1
         if self.planned is not None:
             PLANNER_COUNTS["programs"] += 1
-        vals, valid, stats = run_conj(self.plan_sig(), self.arrays, self.keys, self.fvals)
+        sp = obs.NOOP_SPAN
+        if obs.enabled():
+            obs.counter("exec.dispatches").inc()
+            sp = obs.span(
+                "exec.dispatch", route="fused_multiway" if self.multiway else "fused",
+                round=self.rounds, count_only=self.count_only,
+                est_join_rows=(list(self.planned.est_join_rows)
+                               if self.planned is not None else None),
+            )
+        with sp:
+            vals, valid, stats = run_conj(self.plan_sig(), self.arrays, self.keys, self.fvals)
         return (stats,) if self.count_only else (stats, vals, valid)
 
     def settle(self, host_out, dev_out) -> bool:
@@ -898,15 +985,17 @@ class _ExecJob:
 class _PendingMany:
     """One dispatched-but-unsettled batch: cache-prefilled results, the
     in-flight jobs with their index lists and cache keys, the tensors of
-    the enqueued round, and the delta_version the batch was dispatched
+    the enqueued round and their queued host copies, and the delta_version the batch was dispatched
     against (it guards the settle-time cache inserts)."""
 
-    __slots__ = ("results", "jobs", "outs", "version", "fetch_ms")
+    __slots__ = ("results", "jobs", "outs", "staged", "version", "fetch_ms")
 
     def __init__(self, results, jobs, outs, version):
         self.results = results
         self.jobs = jobs
         self.outs = outs
+        #: the round's host copies, queued right behind its kernels
+        self.staged = stage_many(outs)
         self.version = version
         #: wall ms of each settle round's host fetch; empty when no fetch
         #: happened (all hits, all declined)
@@ -950,19 +1039,25 @@ def settle_pending_iter(results_cache, pending):
     """Streaming second half: yields `(index, result)` as each answer
     becomes final — cache hits first, then, per retry round, every job
     whose verdict landed in that round's ONE host fetch (a ceiling yields
-    None).  Jobs whose capacities grew re-dispatch here, inside the
-    iterator.  Settle-time cache inserts are guarded by the dispatch-time
-    delta_version.  Indices declined at dispatch are never yielded (their
-    `pending.results` entry stays None).  A fetch is one attempt: there
-    is no fault-injection or retry policy around it yet."""
+    None).  The fetch waits on the round's own event (`_Staged`) and
+    retries on `fault.fetch_retry()`, each attempt counted.  Jobs whose
+    capacities grew re-dispatch here, inside the iterator, their copies
+    queued right behind them.  Settle-time cache inserts are guarded by
+    the dispatch-time delta_version.  Indices declined at dispatch are
+    never yielded (their `pending.results` entry stays None)."""
     for i, hit in enumerate(pending.results):
         if hit is not None:
             yield i, hit
-    jobs, outs = pending.jobs, pending.outs
+    jobs, outs, staged = pending.jobs, pending.outs, pending.staged
     while jobs:
         t0 = time.perf_counter()
-        fetched = fetch_many(outs)
-        pending.fetch_ms.append((time.perf_counter() - t0) * 1e3)
+        fetched = retried_fetch(staged)
+        fetch_s = time.perf_counter() - t0
+        pending.fetch_ms.append(fetch_s * 1e3)
+        if obs.enabled():
+            obs.counter("exec.fetches").inc()
+            obs.histogram("exec.settle_fetch_ms").observe(fetch_s * 1e3)
+            obs.REC.record("exec.settle_fetch", "X", t0, fetch_s, 0, {"jobs": len(jobs)})
         nxt = []
         for (idxs, job, key), host, out in zip(jobs, fetched, outs):
             if job.settle(host, out):
@@ -974,7 +1069,8 @@ def settle_pending_iter(results_cache, pending):
                 nxt.append((idxs, job, key))
         jobs = nxt
         outs = [job.dispatch() for _, job, _ in jobs]
-    pending.jobs, pending.outs = [], []
+        staged = stage_many(outs)
+    pending.jobs, pending.outs, pending.staged = [], [], None
 
 
 def settle_pending(results_cache, pending) -> List:
@@ -1137,7 +1233,12 @@ class _TreeExecJob:
         if any(j.planned is not None for j in self._all_jobs()):
             # ONE job carried every planned site this round
             PLANNER_COUNTS["programs"] += 1
-        return fn(*((j.arrays, j.keys, j.fvals) for j in self._all_jobs()))
+        sp = obs.NOOP_SPAN
+        if obs.enabled():
+            obs.counter("exec.dispatches").inc()
+            sp = obs.span("exec.dispatch", route="fused_tree", sites=len(self.site_jobs))
+        with sp:
+            return fn(*((j.arrays, j.keys, j.fvals) for j in self._all_jobs()))
 
     def settle(self, host_out, dev_out) -> bool:
         """Consume one round's fetched outputs: slice the per-site blocks
@@ -1187,7 +1288,14 @@ def run_tree_job(job: _TreeExecJob) -> _TreeExecJob:
     fetch a round."""
     while True:
         out = job.dispatch()
-        if job.settle(fetch(*out), out):
+        t0 = time.perf_counter()
+        fetched = fetch(*out)
+        if obs.enabled():
+            fetch_s = time.perf_counter() - t0
+            obs.counter("exec.fetches").inc()
+            obs.histogram("exec.settle_fetch_ms").observe(fetch_s * 1e3)
+            obs.REC.record("exec.settle_fetch", "X", t0, fetch_s, 0, {"tree": True})
+        if job.settle(fetched, out):
             return job
 
 
@@ -1547,7 +1655,10 @@ class FusedExecutor:
         self.batch_counts["lanes"] += len(lanes)
         self.batch_counts["members"] += len(back)
         while True:
-            (stats,) = fetch(torch.stack([run_lane(term_caps, caps, kr, fr) for kr, fr in lanes]))
+            stacked = torch.stack([run_lane(term_caps, caps, kr, fr) for kr, fr in lanes])
+            # a count round's fetch is a settle fetch: retried, each
+            # attempt counted
+            ((stats,),) = retried_fetch(stage_many([(stacked,)]))
             ranges = stats[:, 3:3 + n_terms]
             totals = stats[:, 3 + n_terms:]
             new_tc = _grown(ranges.max(axis=0), term_caps)

@@ -21,11 +21,14 @@ interned delta to the write-ahead log after every arity is staged and
 before the first swap; with no root `_wal` is the class attribute None
 and the commit path is unchanged.
 
-Left out until their modules are ported, none of which changes a result
-when unset: the trace events, and the `commit_apply` fault point with the
-retry policy the JAX package wraps a commit in (`fault/`, `obs/`: here a
-commit is one attempt), and the columnar store's branch (the columnar
-ingest)."""
+`fault.maybe_fail("commit_apply")` marks the crash point between staging
+and the swap, and `_commit_delta_with_retry` runs a commit through
+`fault.commit_retry()`: stage-then-swap makes a failed attempt invisible,
+so a retry re-stages the same commit.  `commit.delta` / `commit.rebuild`
+are the obs/ events and counters of each version bump.
+
+Left out until its module is ported: the columnar store's branch (the
+columnar ingest)."""
 
 from __future__ import annotations
 
@@ -96,6 +99,11 @@ class IncrementalCommitMixin:
         # rebuilds here, incremental commits in _apply_delta).  The result
         # cache and the planner's statistics key on it.
         self.delta_version = getattr(self, "delta_version", 0) + 1
+        from das_tpu_torch import obs
+
+        if obs.enabled():
+            obs.event("commit.rebuild", version=self.delta_version)
+            obs.counter("commit.rebuilds").inc()
         self._base_counts = (len(self.data.nodes), len(self.data.links))
         self._delta_incoming: Dict[int, list] = {}  # target_row -> [link_rows]
         self._delta_total = 0
@@ -211,7 +219,9 @@ class IncrementalCommitMixin:
         arity staged do the swaps, the incoming-overlay updates and the
         `delta_version` bump run, so a failure while staging leaves the
         device tables, the version and every cached answer as they were,
-        and re-running the same commit succeeds."""
+        and re-running the same commit succeeds.  `maybe_fail("commit_apply")`
+        marks the crash point between the halves."""
+        from das_tpu_torch import fault
         from das_tpu_torch.storage.atom_table import build_bucket
 
         fin = self.fin
@@ -224,6 +234,7 @@ class IncrementalCommitMixin:
                                          incoming_pairs, fin.dangling_hexes)
             swap, became_base, slots = self._stage_delta_merge(commit_bucket)
             staged.append((arity, commit_bucket, incoming_pairs, swap, became_base, slots))
+        fault.maybe_fail("commit_apply")
         # -- write-ahead log: the interned delta is framed and fsynced
         # before anything becomes visible; a failed append leaves the store
         # as it was, and replay skips a retried commit's twin by version
@@ -246,6 +257,21 @@ class IncrementalCommitMixin:
         self._delta_total += max(slot_growth, len(new_node_hexes) + len(new_link_hexes))
         # answers cached against the pre-commit version stop hitting
         self.delta_version += 1
+        from das_tpu_torch import obs
+
+        if obs.enabled():
+            obs.event("commit.delta", version=self.delta_version,
+                      nodes=len(new_node_hexes), links=len(new_link_hexes))
+            obs.counter("commit.deltas").inc()
+
+    def _commit_delta_with_retry(self, action) -> None:
+        """The store's refresh() commit entry: `fault.commit_retry()`
+        retries a retryable apply failure, which is safe because
+        `_apply_delta` stages before it swaps, so a failed attempt left
+        nothing visible.  Other failures propagate untouched."""
+        from das_tpu_torch import fault
+
+        fault.commit_retry().run(lambda: self._apply_delta(*action))
 
     def get_incoming(self, handle: str) -> List[str]:
         """Incoming set: the base CSR rows plus the delta overlay (links

@@ -28,9 +28,15 @@ restore with WAL replay and the warm-state bundle (port of
 
 The JAX package frames msgpack payloads; the port frames the same
 payloads as JSON (`encode` / `decode`), so a decoded payload equals the
-JAX package's and the bytes differ.  Every read or write here is one
-attempt: the fault-injection seams and the trace spans of the JAX
-package's copy are not ported.
+JAX package's and the bytes differ.
+
+Fault seams (fault.FAULT_SITES): `snapshot_write` before a section's first
+byte, `snapshot_rename` before a section's and the generation's rename,
+`wal_append` before a record is framed, `wal_fsync` between its write and
+its fsync, `restore_read` before each section and WAL read.  Reads retry on
+`fault.fetch_retry()`; verification failures are typed and not retried.
+The `dur.*` spans, events, counters and the `dur.restore_ms` histogram are
+obs/'s.
 
 Layout under a snapshot root:
 
@@ -195,7 +201,12 @@ def atomic_write(path: str, writer: Callable) -> Dict[str, int]:
     """Stream `writer(fileobj)` into a temporary file, flush and fsync it,
     rename it into place and fsync the directory: a crash leaves the
     complete new file or the untouched old one.  Returns the manifest
-    digest `{"bytes": n, "crc32": crc}` of what was written."""
+    digest `{"bytes": n, "crc32": crc}` of what was written.  Seams:
+    `snapshot_write` before any byte lands, `snapshot_rename` between the
+    fsync and the rename."""
+    from das_tpu_torch import fault
+
+    fault.maybe_fail("snapshot_write")
     tmp = f"{path}.tmp{os.getpid()}"
     try:
         with open(tmp, "wb") as f:
@@ -203,6 +214,7 @@ def atomic_write(path: str, writer: Callable) -> Dict[str, int]:
             writer(cw)
             f.flush()
             os.fsync(f.fileno())
+        fault.maybe_fail("snapshot_rename")
         os.replace(tmp, path)
     except BaseException:
         try:
@@ -222,11 +234,14 @@ def _publish_generation(tmp_dir: str, gen_dir: str, root: str) -> None:
     """Make a fully written generation visible: fsync its temporary
     directory (each entry was fsynced by `atomic_write`), rename it into
     place, fsync the root."""
+    from das_tpu_torch import fault
+
     fd = os.open(tmp_dir, os.O_RDONLY)
     try:
         os.fsync(fd)
     finally:
         os.close(fd)
+    fault.maybe_fail("snapshot_rename")
     os.replace(tmp_dir, gen_dir)
     _fsync_dir(root)
 
@@ -307,7 +322,13 @@ class DeltaLog:
                 sizes)
 
     def append(self, data, version: int, kind: str = "delta") -> None:
-        """Frame, append and fsync one commit record."""
+        """Frame, append and fsync one commit record.  Seams: `wal_append`
+        before anything is framed (the file is untouched), `wal_fsync`
+        after the write and before the fsync (replay skips a retried
+        commit's twin by its version)."""
+        from das_tpu_torch import fault, obs
+
+        fault.maybe_fail("wal_append")
         fragment, sizes = self._capture(data)
         fragment["v"] = int(version)
         fragment["kind"] = kind
@@ -316,19 +337,27 @@ class DeltaLog:
         with open(self.path, "ab") as f:
             f.write(rec)
             f.flush()
+            fault.maybe_fail("wal_fsync")
             os.fsync(f.fileno())
         self._sizes = sizes
         DUR_STATS["wal_records"] = int(DUR_STATS["wal_records"]) + 1
+        if obs.enabled():
+            obs.event("dur.wal_append", version=version, kind=kind, bytes=len(rec))
+            obs.counter("dur.wal_records").inc()
 
 
 def _truncate_wal(path: str, offset: int) -> None:
     """Cut a torn tail record at the last valid frame boundary and fsync,
     so that the next append starts on a clean frame."""
+    from das_tpu_torch import obs
+
     with open(path, "r+b") as f:
         f.truncate(offset)
         f.flush()
         os.fsync(f.fileno())
     DUR_STATS["torn_tail_truncations"] = int(DUR_STATS["torn_tail_truncations"]) + 1
+    if obs.enabled():
+        obs.event("dur.wal_truncate", offset=offset)
 
 
 def read_wal(path: str, truncate: bool = True) -> Tuple[List[Dict], bool]:
@@ -337,9 +366,12 @@ def read_wal(path: str, truncate: bool = True) -> Tuple[List[Dict], bool]:
     file: a crash mid-append) is truncated in place when `truncate`, so it
     can never replay.  A corrupt frame that is fully present may have
     acknowledged records behind it: that raises `SnapshotCorruptError`
-    and the file is left as it is."""
+    and the file is left as it is.  Seam: `restore_read`."""
+    from das_tpu_torch import fault
+
     if not os.path.exists(path):
         return [], False
+    fault.maybe_fail("restore_read")
     with open(path, "rb") as f:
         buf = f.read()
     records: List[Dict] = []
@@ -421,7 +453,11 @@ def list_generations(root: str) -> List[Tuple[int, str]]:
 
 
 def _verified_bytes(path: str, meta: Dict) -> bytes:
-    """One manifest section, its byte count and CRC-32 verified."""
+    """One manifest section, its byte count and CRC-32 verified.  Seam:
+    `restore_read`."""
+    from das_tpu_torch import fault
+
+    fault.maybe_fail("restore_read")
     with open(path, "rb") as f:
         b = f.read()
     if len(b) != int(meta["bytes"]) or zlib.crc32(b) != int(meta["crc32"]):
@@ -490,9 +526,7 @@ def write_snapshot(db, root: str, keep: Optional[int] = None) -> str:
     The indexes are `data.finalize()`'s: after commits that is a fresh
     host finalize, whose row order differs from the live store's interned
     one; the live store keeps its own `fin`."""
-    from das_tpu_torch.storage import checkpoint
-
-    import numpy as np
+    from das_tpu_torch import obs
 
     cfg = getattr(db, "config", None)
     if keep is None:
@@ -503,6 +537,28 @@ def write_snapshot(db, root: str, keep: Optional[int] = None) -> str:
     gen_dir = os.path.join(root, _gen_name(gen))
     tmp_dir = os.path.join(root, f".{_gen_name(gen)}.tmp{os.getpid()}")
     version = int(getattr(db, "delta_version", 0))
+    with obs.span("dur.snapshot", generation=gen, version=version):
+        _write_generation(db, root, gen, gen_dir, tmp_dir, version)
+    # the new generation is durable: commits from here log into its WAL
+    db._wal = DeltaLog(os.path.join(gen_dir, WAL_FILE), db.data)
+    db._snapshot_root = root
+    DUR_STATS["generation"] = gen
+    DUR_STATS["snapshots"] = int(DUR_STATS["snapshots"]) + 1
+    if obs.enabled():
+        obs.counter("dur.snapshots").inc()
+    prune_generations(root, keep)
+    return gen_dir
+
+
+def _write_generation(db, root: str, gen: int, gen_dir: str, tmp_dir: str,
+                      version: int) -> None:
+    """Every section of generation `gen` into `tmp_dir`, the manifest last,
+    then the rename to `gen_dir`; the temporary directory is removed if
+    anything fails."""
+    from das_tpu_torch.storage import checkpoint
+
+    import numpy as np
+
     os.makedirs(tmp_dir, exist_ok=True)
     try:
         data = db.data
@@ -539,13 +595,6 @@ def write_snapshot(db, root: str, keep: Optional[int] = None) -> str:
     except BaseException:
         shutil.rmtree(tmp_dir, ignore_errors=True)
         raise
-    # the new generation is durable: commits from here log into its WAL
-    db._wal = DeltaLog(os.path.join(gen_dir, WAL_FILE), db.data)
-    db._snapshot_root = root
-    DUR_STATS["generation"] = gen
-    DUR_STATS["snapshots"] = int(DUR_STATS["snapshots"]) + 1
-    prune_generations(root, keep)
-    return gen_dir
 
 
 def prune_generations(root: str, keep: int) -> None:
@@ -561,12 +610,18 @@ def prune_generations(root: str, keep: int) -> None:
 
 def _load_generation(gen_dir: str):
     """(AtomSpaceData with its restored indexes, manifest) of one verified
-    generation."""
+    generation.  A read failure retries on `fault.fetch_retry()`; a
+    verification failure is typed and not retried (the caller falls back
+    a generation)."""
+    from das_tpu_torch import fault
     from das_tpu_torch.storage import checkpoint
 
-    manifest = verify_generation(gen_dir)
-    data = checkpoint.load(gen_dir, _verified=True)
-    return data, manifest
+    def attempt():
+        manifest = verify_generation(gen_dir)
+        data = checkpoint.load(gen_dir, _verified=True)
+        return data, manifest
+
+    return fault.fetch_retry().run(attempt)
 
 
 def newest_valid_generation(root: str):
@@ -595,7 +650,10 @@ def replay_wal(db, gen_dir: str, manifest: Dict) -> int:
     are skipped (the snapshot holds them, or a retried commit's twin);
     every applied record must land the store exactly on its version, else
     `SnapshotCorruptError`."""
-    records, _torn = read_wal(os.path.join(gen_dir, manifest["wal"]))
+    from das_tpu_torch import fault
+
+    records, _torn = fault.fetch_retry().run(
+        lambda: read_wal(os.path.join(gen_dir, manifest["wal"])))
     replayed = 0
     for rec in records:
         v = int(rec["v"])
@@ -619,6 +677,7 @@ def restore(root: str, config=None, backend: Optional[str] = None, device=None):
     head, and its warm bundle where it still matches: a live store on
     `device` (None = CUDA, which raises without a card) whose commits
     append to the generation's WAL."""
+    from das_tpu_torch import obs
     from das_tpu_torch.core.config import DasConfig
     from das_tpu_torch.storage.tensor_db import TensorDB
 
@@ -627,16 +686,20 @@ def restore(root: str, config=None, backend: Optional[str] = None, device=None):
     backend = backend or config.backend
     if backend != "tensor":
         raise ValueError(f"restore: the port restores the tensor backend only, not {backend!r}")
-    data, manifest, gen_dir = newest_valid_generation(root)
-    db = TensorDB(data, config, device=device)
-    db.delta_version = int(manifest["delta_version"])
-    replayed = replay_wal(db, gen_dir, manifest)
-    db._wal = DeltaLog(os.path.join(gen_dir, WAL_FILE), db.data)
-    db._snapshot_root = root
-    warm_applied = _apply_warm(db, gen_dir, manifest)
+    with obs.span("dur.restore", backend=backend):
+        data, manifest, gen_dir = newest_valid_generation(root)
+        db = TensorDB(data, config, device=device)
+        db.delta_version = int(manifest["delta_version"])
+        replayed = replay_wal(db, gen_dir, manifest)
+        db._wal = DeltaLog(os.path.join(gen_dir, WAL_FILE), db.data)
+        db._snapshot_root = root
+        warm_applied = _apply_warm(db, gen_dir, manifest)
     elapsed = time.perf_counter() - t0
     DUR_STATS["generation"] = int(manifest["generation"])
     DUR_STATS["last_restore_s"] = round(elapsed, 4)
+    if obs.enabled():
+        obs.counter("dur.recovery_replayed").inc(replayed)
+        obs.histogram("dur.restore_ms").observe(elapsed * 1e3)
     log.info(f"restore: generation {manifest['generation']} + {replayed} WAL commits in "
              f"{elapsed:.3f}s (warm bundle {'applied' if warm_applied else 'absent/stale'})")
     return db
@@ -651,8 +714,11 @@ def _apply_warm(db, gen_dir: str, manifest: Dict) -> bool:
         return False
     if int(warm_v) != int(db.delta_version):
         return False
+    from das_tpu_torch import fault
+
     try:
-        state = decode(_verified_bytes(os.path.join(gen_dir, WARM_FILE), meta))
+        state = decode(fault.fetch_retry().run(
+            lambda: _verified_bytes(os.path.join(gen_dir, WARM_FILE), meta)))
         from das_tpu_torch.query.fused import apply_warm_state
 
         return apply_warm_state(db, state)

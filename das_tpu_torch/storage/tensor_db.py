@@ -228,7 +228,7 @@ class TensorDB(IncrementalCommitMixin, MemoryDB):
             self.dev = DeviceTables(self.fin, self.device)
             self._reset_delta_state()
             return
-        self._apply_delta(*action)
+        self._commit_delta_with_retry(action)
 
     @classmethod
     def restore(cls, path: str, config: Optional[DasConfig] = None,

@@ -728,3 +728,81 @@ def test_miner_star_counts_three_ways_on_card():
     assert kernels.LAUNCH_COUNTS["probe"] > 0
     assert kernels.LAUNCH_COUNTS["index_join"] + kernels.LAUNCH_COUNTS["join_tables"] \
         + kernels.LAUNCH_COUNTS["multiway"] > 0
+
+
+@pytest.mark.gpu
+def test_coalescer_on_card_equals_query():
+    """Concurrent requests through DasService's coalescer on the card: the
+    strings serial query() gives, fewer batches than requests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels only run on the GPU")
+    import threading
+
+    from das_tpu_torch.api.atomspace import DistributedAtomSpace
+    from das_tpu_torch.models.bio import build_bio_atomspace
+    from das_tpu_torch.service.query_dsl import parse_query
+    from das_tpu_torch.service.server import DasService
+
+    data, genes, _ = build_bio_atomspace(seed=5, **SMALL)
+    names = [data.nodes[h].name for h in genes]
+    das = DistributedAtomSpace(backend="tensor", data=data, device="cuda")
+    dsl = [f"Node g Gene {g}, Link Member g $V3, Link Member $V2 $V3, "
+           f"Link Interacts g $V2{', NOT' if i % 3 == 0 else ''}, AND"
+           for i, g in enumerate(names[:48])]
+    want = [das.query(parse_query(q)) for q in dsl]
+    assert sum(bool(w) for w in want) >= 8
+    svc = DasService(backend="tensor")
+    key = svc.attach_tenant("bio", das)
+    got = [None] * len(dsl)
+
+    def client(k):
+        for i in range(k, len(dsl), 6):
+            got[i] = svc.query({"key": key, "query": dsl[i]})
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True) for k in range(6)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert [g["msg"] for g in got] == want and all(g["success"] for g in got)
+    stats = svc.coalescer_stats()
+    assert stats["items"] == len(dsl) and stats["batches"] < len(dsl)
+
+
+@pytest.mark.gpu
+def test_pipelined_settle_does_not_wait_for_next_group():
+    """Group k's settle waits on its own CUDA event: with a sleep kernel
+    queued before group k+1's kernels, it returns long before the sleep
+    ends, with the answers query() gives."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels only run on the GPU")
+    import time
+
+    from das_tpu_torch.api.atomspace import DistributedAtomSpace
+    from das_tpu_torch.core.config import DasConfig
+    from das_tpu_torch.models.bio import build_bio_atomspace
+
+    data, genes, _ = build_bio_atomspace(seed=5, **SMALL)
+    names = [data.nodes[h].name for h in genes]
+    das = DistributedAtomSpace(backend="tensor", data=data, device="cuda",
+                               config=DasConfig(result_cache_size=0))
+    batch, _ = _bio_queries(names)
+    group_k = [q for q, a in zip(batch[:8], [das.query(q) for q in batch[:8]]) if a]
+    group_k1 = batch[8:16]
+    assert len(group_k) >= 2
+    want = [das.query(q) for q in group_k]
+    das.query_many(group_k)          # capacities learned: one round each
+    das.query_many(group_k1)
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    job_k = das.query_many_dispatch(group_k)
+    torch.cuda._sleep(2_000_000_000)  # about a second of card time
+    job_k1 = das.query_many_dispatch(group_k1)
+    got = job_k.settle()
+    settle_ms = (time.perf_counter() - t0) * 1e3
+    rest = job_k1.settle()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    assert got == want
+    assert rest == [das.query(q) for q in group_k1]
+    assert settle_ms * 4 < card_ms, (settle_ms, card_ms)
