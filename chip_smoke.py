@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of das_tpu_torch on one NVIDIA card (H100).
 
-    python3 chip_smoke.py [--scale S] [--seed N]
+    python3 chip_smoke.py [--scale S] [--seed N] [--only-ingest]
 
 Phases, one JSON line each:
 
@@ -196,7 +196,25 @@ Phases, one JSON line each:
                WAL, bit-equal again); and with the planner off, the warm
                bundle applied at its version (first-pass rounds with it,
                without it, and after a commit past it, when it is
-               discarded).  The root is removed at the end.
+               discarded).  The root is removed at the end;
+ 13. ingest  — after durable (the main store is gone): the same FlyBase-
+               shaped configuration and seed written as a canonical file
+               (`write_bio_canonical`) into a temporary directory, loaded
+               by `load_canonical_knowledge_base` into a fresh store on the
+               card through the native scanner's columnar route; the
+               generation, the scan into columns and finalize plus upload
+               timed apart, with MB/s, expressions/s, the process's RSS
+               (sampled) and the store's bytes; the handle sets, every
+               Finalized array and every device tensor held bit for bit
+               against the in-process build (its record prefix, finalized
+               by the dict path); phase durable's families (4 Ors) against
+               numpy, a 256-gene commit onto the columnar store
+               (incremental), the families and the new genes' queries
+               again; and the animals KB dumped by `write_canonical` and
+               loaded through the columnar route, its tree queries equal
+               to `load_knowledge_base` of the .metta file.  With
+               --only-ingest, phases card and ingest run alone (no
+               kernels line): the full-scale ingest measurement.
 
 Then a line {"kernels": [...]} with each kernel's route, source, the TPU
 kernel it replaces, launches on the main path (every phase's after phase
@@ -1612,6 +1630,25 @@ def tree_answer(das, query, key):
     return bool(matched), answer.negation, out
 
 
+def animal_queries():
+    """The animals KB's tree-phase queries: the unordered Similarity probe
+    of ten concepts, a conjunction over it and an Or."""
+    from das_tpu_torch.query.ast import And, Link, Node, Or, Variable
+
+    names = ["human", "monkey", "chimp", "snake", "earthworm", "rhino", "triceratops",
+             "vine", "ent", "mammal"]
+
+    def sim(*targets):
+        return Link("Similarity", list(targets), False)
+
+    queries = [sim(Node("Concept", n), Variable("V1")) for n in names]
+    queries += [And([sim(Variable("V1"), Variable("V2")),
+                     Link("Inheritance", [Variable("V1"), Node("Concept", "mammal")], True)]),
+                Or([Link("Inheritance", [Variable("V1"), Node("Concept", "plant")], True),
+                    sim(Variable("V1"), Node("Concept", "snake"))])]
+    return queries
+
+
 class TreeRounds:
     """While active, counts whole-tree job dispatches (one round each)."""
 
@@ -1825,17 +1862,7 @@ def phase_tree(args, das, data, genes, host, large, smi):
     adas = DistributedAtomSpace(backend="tensor", data=load_metta_text(animals_metta()),
                                 device=DEVICE)
     amem = DistributedAtomSpace(backend="memory", data=load_metta_text(animals_metta()))
-    names = ["human", "monkey", "chimp", "snake", "earthworm", "rhino", "triceratops",
-             "vine", "ent", "mammal"]
-
-    def sim(*targets):
-        return Link("Similarity", list(targets), False)
-
-    animal_qs = [sim(Node("Concept", n), Variable("V1")) for n in names]
-    animal_qs += [And([sim(Variable("V1"), Variable("V2")),
-                       Link("Inheritance", [Variable("V1"), Node("Concept", "mammal")], True)]),
-                  Or([Link("Inheritance", [Variable("V1"), Node("Concept", "plant")], True),
-                      sim(Variable("V1"), Node("Concept", "snake"))])]
+    animal_qs = animal_queries()
     reset_launch_counts()
     similar = 0
     animal_routes = dict.fromkeys(compiler.ROUTE_COUNTS, 0)
@@ -1888,6 +1915,8 @@ def phase_tree(args, das, data, genes, host, large, smi):
     reads = pick_genes(host, [data.nodes[h].name for h in genes], args.seed + 13, n=8,
                        n_nonempty=4)
     device_ms, scan_ms = [], []
+    # a TensorDB keeps no host scan lists: MemoryDB over the same records does
+    scan_db = MemoryDB(das.data)
     for name in reads:
         gh = das.db.get_node_handle("Gene", name)
         t0 = time.perf_counter()
@@ -1895,7 +1924,7 @@ def phase_tree(args, das, data, genes, host, large, smi):
         device_ms.append((time.perf_counter() - t0) * 1e3)
         got = das.db.get_matched_links("Member", [gh, "*"])
         t0 = time.perf_counter()
-        scanned = MemoryDB.get_matched_links(das.db, "Member", [gh, "*"])
+        scanned = scan_db.get_matched_links("Member", [gh, "*"])
         scan_ms.append((time.perf_counter() - t0) * 1e3)
         if sorted(got) != sorted(scanned) or sorted(handles) != sorted(h for h, _ in scanned):
             raise AssertionError(f"get_links(Member, [{name}, *]) differs from the host scan")
@@ -2214,10 +2243,11 @@ def phase_commit(args, das, data, genes, host, smi, upload_s, slice_p50):
                 raise AssertionError("a tree answer after the commit is stale or differs")
             # get_links through the device probes against the host scan of
             # the same committed store, new genes and touched ones
+            scan_db = MemoryDB(db.data)
             for g in new_h[:4] + partners[:4]:
                 got = db.get_matched_links("Member", [g, "*"])
                 if not got or sorted(got) != sorted(
-                        MemoryDB.get_matched_links(db, "Member", [g, "*"])):
+                        scan_db.get_matched_links("Member", [g, "*"])):
                     raise AssertionError("get_links after the commit differs from the host scan")
             cache["tree_answers"] = [[len(a) for a in tree_before], [len(a) for a in tree_after]]
         check_answers(new_h[:16] + partners[:16])
@@ -2937,7 +2967,14 @@ def phase_service(args, das, data, genes, host, smi):
     probe = svc.query({"key": bkey, "query": cold})
     for k in TPU_KERNELS:
         total[k] += LAUNCH_COUNTS[k]
-    bstats = svc.coalescer_stats()["tenants"]["breaker"]
+    # the worker records the group's verdict after it resolved the probe's
+    # future, so the answer can reach this thread first: wait for it
+    deadline = time.perf_counter() + 5.0
+    while True:
+        bstats = svc.coalescer_stats()["tenants"]["breaker"]
+        if bstats["breaker_state"] != "half_open" or time.perf_counter() > deadline:
+            break
+        time.sleep(0.01)
     if probe["msg"] != want[3] or (bstats["breaker_trips"], bstats["breaker_recoveries"]) != (1, 1):
         raise AssertionError(f"breaker: the probe did not restore service: {bstats}")
     breaker = {"trips": bstats["breaker_trips"], "recoveries": bstats["breaker_recoveries"],
@@ -3074,11 +3111,13 @@ def assert_same_tables(want, got, what):
 
 class Timed:
     """While active, `obj.attr` is wrapped to add each call's wall seconds
-    to `sink[key(args)]` (by default under `attr`)."""
+    to `sink[key(args)]` (by default under `attr`) and count its calls in
+    `n`."""
 
     def __init__(self, sink, obj, attr, key=None):
         self.sink, self.obj, self.attr = sink, obj, attr
         self.key = key or (lambda *a: attr)
+        self.n = 0
 
     def __enter__(self):
         self._fn = fn = getattr(self.obj, self.attr)
@@ -3089,6 +3128,7 @@ class Timed:
             out = fn(*a, **kw)
             k = self.key(*a)
             self.sink[k] = self.sink.get(k, 0.0) + time.perf_counter() - t0
+            self.n += 1
             return out
 
         setattr(self.obj, self.attr, timed)
@@ -3530,12 +3570,363 @@ def durable_small(args, root):
                 "restored_past_bundle_rounds": rounds_stale}}
 
 
+# ---- phase 13 --------------------------------------------------------------------
+
+
+class RssPeak:
+    """While active, samples this process's resident set every 20 ms from
+    /proc/self/statm (read only): `peak` and `before` in bytes."""
+
+    def __enter__(self):
+        import threading
+
+        self.before = self.peak = self.read()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    @staticmethod
+    def read():
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def _run(self):
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, self.read())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.read())
+        return False
+
+
+def hex_block(hexes):
+    """[n, 16] uint8 digests of an iterable of hex handles."""
+    return np.frombuffer(bytes.fromhex("".join(hexes)), dtype=np.uint8).reshape(-1, 16)
+
+
+def row_digests(hex_of_row):
+    """[rows, 16] digests of a Finalized's row registry: the lazy registry
+    of a columnar store (storage/columnar.py LazyHexRows) keeps them as an
+    array already, with a list tail for rows interned by commits."""
+    from das_tpu_torch.storage.columnar import LazyHexRows
+
+    if isinstance(hex_of_row, LazyHexRows):
+        tail = hex_block(hex_of_row._tail) if hex_of_row._tail else np.empty((0, 16), np.uint8)
+        return np.concatenate([hex_of_row._base, tail])
+    return hex_block(hex_of_row)
+
+
+def sorted_digests(block):
+    """The rows of an [n, 16] digest array in one canonical order."""
+    keys = np.ascontiguousarray(block).view(">u8").reshape(-1, 2)
+    return block[np.lexsort((keys[:, 1], keys[:, 0]))]
+
+
+def assert_same_finalized(want, got):
+    """Raise unless two Finalized are equal bit for bit: the row registry
+    (compared as digests), the type registry, every bucket column, posting
+    key and permutation, the incoming CSR and the dangling set."""
+    if (want.atom_count, want.node_count) != (got.atom_count, got.node_count):
+        raise AssertionError("finalize: atom counts differ")
+    if not np.array_equal(row_digests(want.hex_of_row), row_digests(got.hex_of_row)):
+        raise AssertionError("finalize: the row registries differ")
+    if want.type_names != got.type_names or want.type_id_of_hash != got.type_id_of_hash:
+        raise AssertionError("finalize: the type registries differ")
+    pairs = [(f"{n}", getattr(want, n), getattr(got, n))
+             for n in ("node_type_id", "incoming_offsets", "incoming_links")]
+    if sorted(want.buckets) != sorted(got.buckets):
+        raise AssertionError("finalize: the bucket arities differ")
+    for arity, wb in want.buckets.items():
+        gb = got.buckets[arity]
+        for n in ("rows", "type_id", "ctype", "targets", "targets_sorted", "order_by_type",
+                  "key_type", "order_by_ctype", "key_ctype"):
+            pairs.append((f"b{arity}.{n}", getattr(wb, n), getattr(gb, n)))
+        for n in ("order_by_type_pos", "key_type_pos", "order_by_pos", "key_pos",
+                  "order_by_type_spos", "key_type_spos"):
+            ws, gs = getattr(wb, n), getattr(gb, n)
+            if len(ws) != len(gs):
+                raise AssertionError(f"finalize: b{arity}.{n} lengths differ")
+            pairs += [(f"b{arity}.{n}[{i}]", w, g) for i, (w, g) in enumerate(zip(ws, gs))]
+    for name, w, g in pairs:
+        if w.dtype != g.dtype or w.shape != g.shape or not np.array_equal(w, g):
+            raise AssertionError(f"finalize: {name} differs")
+    if want.dangling_hexes != got.dangling_hexes:
+        raise AssertionError("finalize: the dangling sets differ")
+    return len(pairs)
+
+
+def assert_same_device_tables(want, got):
+    """Raise unless two DeviceTables hold equal tensors (dtype, shape,
+    values, sizes and capacities), compared one tensor at a time on the
+    host; returns the number of tensors compared."""
+    from das_tpu_torch.storage.tensor_db import BUCKET_LIST_PADS, BUCKET_PADS
+
+    pairs = [(n, getattr(want, n), getattr(got, n))
+             for n in ("node_type_id", "incoming_offsets", "incoming_links")]
+    if sorted(want.buckets) != sorted(got.buckets):
+        raise AssertionError("device tables: the bucket arities differ")
+    for arity, wb in want.buckets.items():
+        gb = got.buckets[arity]
+        if (wb.size, wb.capacity) != (gb.size, gb.capacity):
+            raise AssertionError(f"device tables: b{arity} size or capacity differs")
+        pairs += [(f"b{arity}.{n}", getattr(wb, n), getattr(gb, n)) for n, _ in BUCKET_PADS]
+        for n, _ in BUCKET_LIST_PADS:
+            pairs += [(f"b{arity}.{n}[{i}]", w, g)
+                      for i, (w, g) in enumerate(zip(getattr(wb, n), getattr(gb, n)))]
+    for name, w, g in pairs:
+        w, g = w.cpu(), g.cpu()
+        if w.dtype != g.dtype or w.shape != g.shape or not bool((w == g).all()):
+            raise AssertionError(f"device tables: {name} differs")
+    return len(pairs)
+
+
+def ingest_families(args, data, host, ref, name_of, new=()):
+    """Phase durable's families on an ingested store (phase slice's grounded
+    and Not queries, phase planned's grounded stars, 4 of phase tree's Ors
+    of two chains), plus the grounded and Not queries of `new` genes, each
+    with its numpy answer in handle space from `ref`."""
+    families = durable_families(args, data, host, ref, name_of)
+    families["or2"] = families["or2"][:4]
+    handle = {n: h for h, n in name_of.items()}
+    families["new_genes"] = [(grounded_query(n, neg), ref.grounded(handle[n], neg))
+                             for n in new for neg in (False, True)]
+    return families
+
+
+def phase_ingest(args, data, base, genes, host, smi):
+    """Bulk ingest on the card: the FlyBase-shaped KB written as a canonical
+    file at --scale and --seed, loaded by the facade through the native
+    scanner's columnar route, timed by stage (generation, the scan into
+    columns, finalize plus upload); checked against the in-process build of
+    the same configuration (`base` = its node and link counts, a prefix of
+    `data`'s insertion-ordered records): handle sets, the Finalized bit for
+    bit, and the device tables against an upload of the dict finalize.
+    Then phase durable's families on the ingested store, a commit, the
+    families again, and the animals KB dumped to canonical form and loaded
+    through the columnar route against load_knowledge_base of the .metta
+    file.  Counters zeroed just before the ingested store's queries, read
+    just after the last of them."""
+    import gc
+    import resource
+    import shutil
+    import tempfile
+    from itertools import islice
+
+    import torch
+
+    from das_tpu_torch.api.atomspace import DistributedAtomSpace
+    from das_tpu_torch.convert.dump import write_canonical
+    from das_tpu_torch.ingest import native
+    from das_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from das_tpu_torch.models.bio import write_bio_canonical
+    from das_tpu_torch.query import compiler, fused
+    from das_tpu_torch.storage import columnar
+    from das_tpu_torch.storage import atom_table
+    from das_tpu_torch.storage.atom_table import AtomSpaceData, load_metta_file
+    from das_tpu_torch.storage.tensor_db import DeviceTables
+
+    t_phase = time.perf_counter()
+    cfg = scaled(FLYBASE, args.scale)
+    root = tempfile.mkdtemp(prefix="das_ingest_")
+    try:
+        path = os.path.join(root, "flybase_shaped.metta")
+        with RssPeak() as gen_rss:
+            t0 = time.perf_counter()
+            n_expr = write_bio_canonical(path, seed=args.seed, **cfg)
+            generate_s = time.perf_counter() - t0
+        file_mb = os.path.getsize(path) / 1e6
+        # the scanner's build, on a fresh checkout a g++ run, is timed
+        # apart from the load
+        prebuilt = (native.BUILD_DIR / f"libdas_native_{native._digest()}.so").exists()
+        t0 = time.perf_counter()
+        native.build()
+        scanner_build_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        parts = {}
+        das = DistributedAtomSpace(backend="tensor", device=DEVICE)
+        with RssPeak() as load_rss, \
+                Timed(parts, native, "load_canonical_files_columnar"), \
+                Timed(parts, columnar, "columnar_finalize"):
+            t0 = time.perf_counter()
+            das.load_canonical_knowledge_base(path)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        store_bytes = torch.cuda.memory_allocated() - mem0
+        scan_s = parts["load_canonical_files_columnar"]
+        finalize_s = parts["columnar_finalize"]
+        core = das.data.columnar
+        if core is None or das.db.dev.buckets[2].rows.device.type != torch.device(DEVICE).type:
+            raise AssertionError("the canonical load did not take the columnar route to the card")
+        if das.count_atoms() != base:
+            raise AssertionError(f"ingested {das.count_atoms()} atoms, built {base}")
+
+        # -- against the in-process build --------------------------------------------
+        t0 = time.perf_counter()
+        n0, m0 = base
+        for what, block, hexes in (("node", core.node_hash, islice(data.nodes, n0)),
+                                   ("link", core.link_hash, islice(data.links, m0))):
+            if not np.array_equal(sorted_digests(block), sorted_digests(hex_block(hexes))):
+                raise AssertionError(f"the ingested {what} handles differ from the build's")
+        if host.fin.atom_count == n0 + m0:
+            ref_fin = host.fin          # nothing was committed to the build
+        else:
+            ref_data = AtomSpaceData()
+            ref_data.nodes = dict(islice(data.nodes.items(), n0))
+            ref_data.links = dict(islice(data.links.items(), m0))
+            ref_fin = ref_data.finalize()
+            del ref_data
+        n_fin = assert_same_finalized(ref_fin, das.db.fin)
+        ref_tables = DeviceTables(ref_fin, torch.device("cpu"))
+        n_tables = assert_same_device_tables(ref_tables, das.db.dev)
+        del ref_tables, ref_fin
+        check_s = time.perf_counter() - t0
+        spent = {}                # the phase's other seconds, by part
+        t0 = time.perf_counter()
+        gc.collect()
+        spent["gc_s"] = time.perf_counter() - t0
+
+        # -- queries, a commit, queries again ----------------------------------------
+        ref = CommitRef(host)
+        name_of = {h: data.nodes[h].name for h in genes}
+        procs = sorted({ref.hexes[p] for p in host.member[:, 1].tolist()})
+        name_of.update((p, data.nodes[p].name) for p in procs)
+        with_procs = sorted({ref.hexes[g] for g in host.member[:, 0].tolist()})
+        t0 = time.perf_counter()
+        families = ingest_families(args, data, host, ref, name_of)
+        spent["numpy_answers_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        compiler.reset_route_counts()
+        reset_launch_counts()
+        f0 = fused.FETCH_COUNTS["n"]
+        t0 = time.perf_counter()
+        got, stars_routed = family_answers(das, families)
+        families_s = time.perf_counter() - t0
+        for fam, queries in families.items():
+            if got[fam] != [want for _q, want in queries]:
+                raise AssertionError(f"ingested store: {fam} answers differ from numpy")
+        answers = {fam: sum(len(a) for a in v) for fam, v in got.items()}
+        db = das.db
+        version, total = db.delta_version, db._delta_total
+        nodes, links, new, _partners = gene_commit(
+            random.Random(args.seed + 13), ref, name_of, "GENE:ingest_", 256, with_procs, procs)
+        # the commit split: the parse with its membership probes (linear
+        # scans of the digest columns while no digest index exists, else
+        # the sorted index), the device merge, the collector's pauses
+        sink = {}
+        torch.cuda.synchronize()
+        with Timed(sink, atom_table, "load_metta_text"), \
+                Timed(sink, columnar, "_linear_find") as linear, \
+                Timed(sink, columnar._DigestIndex, "find") as indexed, \
+                Timed(sink, columnar.ColumnarCore, "wait_indexes"), \
+                Timed(sink, type(db), "_stage_delta_merge"), GcPauses() as pauses:
+            t0 = time.perf_counter()
+            das.commit_transaction(transaction(das, nodes, links))
+            torch.cuda.synchronize()
+            commit_ms = (time.perf_counter() - t0) * 1e3
+        commit_parts = {
+            "parse_ms": sink["load_metta_text"] * 1e3,
+            "linear_probes": linear.n, "linear_probe_ms": sink.get("_linear_find", 0.0) * 1e3,
+            "indexed_probes": indexed.n, "indexed_probe_ms": sink.get("find", 0.0) * 1e3,
+            "wait_indexes_ms": sink.get("wait_indexes", 0.0) * 1e3,
+            "merge_ms": sink["_stage_delta_merge"] * 1e3,
+            "rest_ms": commit_ms - (sink["load_metta_text"] + sink["_stage_delta_merge"]) * 1e3,
+            "gc_pause_ms": pauses.ms, "gc_collections": pauses.by_gen}
+        if (db.delta_version != version + 1 or db._delta_total != total + 256 + len(links)
+                or das.data.columnar is not core):
+            raise AssertionError("the commit onto the columnar store was not incremental")
+        ref.record(db, links)
+        name_of.update((db.get_node_handle("Gene", n), n) for n in new)
+        t0 = time.perf_counter()
+        families = ingest_families(args, data, host, ref, name_of, new[:16])
+        spent["numpy_answers_s"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        after, _ = family_answers(das, families)
+        spent["after_commit_families_s"] = time.perf_counter() - t0
+        for fam, queries in families.items():
+            if after[fam] != [want for _q, want in queries]:
+                raise AssertionError(f"ingested store after the commit: {fam} answers differ")
+        if not any(after["new_genes"][0::2]):
+            raise AssertionError("no new gene's grounded answer is non-empty")
+        torch.cuda.synchronize()
+        launches = dict(LAUNCH_COUNTS)
+        routes = dict(compiler.ROUTE_COUNTS)
+        fetches = fused.FETCH_COUNTS["n"] - f0
+        idle = [k for k in TPU_KERNELS if launches[k] == 0]
+        if idle or routes["host"]:
+            raise AssertionError(f"ingested store: kernels idle {idle}, routes {routes}")
+        after_answers = {fam: sum(len(a) for a in v) for fam, v in after.items()}
+        del das, db, core
+        t0 = time.perf_counter()
+        gc.collect()
+        spent["gc_s"] += time.perf_counter() - t0
+        torch.cuda.empty_cache()
+
+        # -- animals: dumped to canonical form, loaded through the columnar route -----
+        animals_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                    "data", "samples", "animals.metta")
+        canonical_path = os.path.join(root, "animals_canonical.metta")
+        t0 = time.perf_counter()
+        write_canonical(load_metta_file(animals_path), canonical_path)
+        cdas = DistributedAtomSpace(backend="tensor", device=DEVICE)
+        cdas.load_canonical_knowledge_base(canonical_path)
+        mdas = DistributedAtomSpace(backend="tensor", device=DEVICE)
+        mdas.load_knowledge_base(animals_path)
+        if cdas.data.columnar is None or cdas.count_atoms() != mdas.count_atoms():
+            raise AssertionError("animals: the canonical dump did not load columnar, or lost atoms")
+        reset_launch_counts()
+        animal_answers = 0
+        for q in animal_queries():
+            want = tree_answer(mdas, q, str)
+            if tree_answer(cdas, q, str) != want:
+                raise AssertionError(f"animals: {q} differs between the canonical and .metta loads")
+            animal_answers += len(want[2])
+        for k in TPU_KERNELS:
+            launches[k] += LAUNCH_COUNTS[k]
+        del cdas, mdas
+        spent["animals_s"] = time.perf_counter() - t0
+
+        finalize_upload_s = load_s - scan_s
+        emit({
+            "phase": "ingest", "card": smi, "scale": args.scale, "seed": args.seed,
+            "expressions": n_expr, "file_mb": file_mb, "nodes": base[0], "links": base[1],
+            "scanner_build_s": scanner_build_s, "scanner_prebuilt": prebuilt,
+            "generate_s": generate_s, "scan_s": scan_s, "finalize_s": finalize_s,
+            "upload_s": finalize_upload_s - finalize_s,
+            "finalize_upload_s": finalize_upload_s, "load_s": load_s,
+            "scan_mb_per_s": file_mb / scan_s, "load_mb_per_s": file_mb / load_s,
+            "load_expressions_per_s": n_expr / load_s,
+            "rss_bytes": {"before_generate": gen_rss.before, "peak_generate": gen_rss.peak,
+                          "before_load": load_rss.before, "peak_load": load_rss.peak,
+                          "load_increase": load_rss.peak - load_rss.before,
+                          "process_peak_kb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss},
+            "store_bytes_allocated": store_bytes,
+            "checks": {"finalized_arrays": n_fin, "device_tables": n_tables,
+                       "check_s": check_s},
+            "families_s": families_s, "answers": answers, "after_commit_answers": after_answers,
+            "stars_multiway_auto": stars_routed, "commit_ms": commit_ms,
+            "commit_parts": commit_parts, "spent": spent,
+            "routes": routes, "host_fetches": fetches,
+            "animals": {"queries": len(animal_queries()), "answers": animal_answers},
+            "launches": launches, "phase_s": time.perf_counter() - t_phase,
+        })
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=0.1,
                     help="fraction of the FlyBase-shaped KB's counts (widths are never cut)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=50, help="timed calls per kernel case")
+    ap.add_argument("--only-ingest", action="store_true",
+                    help="phases card and ingest alone (no kernels line): the full-scale "
+                         "ingest measurement")
     args = ap.parse_args(argv)
 
     import torch
@@ -3553,6 +3944,15 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     data, genes = build_kb(cfg, args.seed)
     build_s = time.perf_counter() - t0
+    base = (len(data.nodes), len(data.links))
+    if args.only_ingest:
+        emit({"phase": "kb", "scale": args.scale, "nodes": base[0], "links": base[1],
+              "build_s": build_s})
+        phase_ingest(args, data, base, genes, HostKB(data, genes), smi)
+        emit({"elapsed_s": time.perf_counter() - t_start})
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -3594,9 +3994,10 @@ def main(argv=None) -> int:
     del das
     durable = phase_durable(args, holder, data, genes, host, smi,
                             {"build_s": build_s, "finalize_upload_s": upload_s}, committed)
+    ingested = phase_ingest(args, data, base, genes, host, smi)
     for name in TPU_KERNELS:
         launches[name] += (counted[name] + api[name] + tree[name] + commit[name] + mined[name]
-                           + served[name] + durable[name])
+                           + served[name] + durable[name] + ingested[name])
 
     kernels_line = []
     for name, (source, replaces) in TPU_KERNELS.items():

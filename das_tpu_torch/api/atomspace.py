@@ -26,8 +26,13 @@ Serving (das_tpu_torch/service/): the coalescer drives
 `query_many_dispatch(..., cache_only=)` and `settle_iter`; planning a
 batch is the `serve.plan` span of obs/.
 
-Not ported yet: the sharded backend and its sharded checkpoint, the
-canonical loader."""
+Bulk loads (ingest/pipeline.py): `load_knowledge_base` parses `.metta`
+and `.scm` files; `load_canonical_knowledge_base` reads converter-format
+files through the native C++ scanner (into the columnar store,
+storage/columnar.py, when the facade is empty), which raises when it
+cannot be built.
+
+Not ported yet: the sharded backend and its sharded checkpoint."""
 
 from __future__ import annotations
 
@@ -508,11 +513,22 @@ class DistributedAtomSpace:
     # -- bulk loads --------------------------------------------------------
 
     def load_knowledge_base(self, source: str) -> None:
-        """Load a `.metta` file, or every `.metta` file of a directory."""
-        from das_tpu_torch.ingest.metta import load_knowledge_base
+        """Load a `.metta` or `.scm` file, or every such file of a
+        directory."""
+        from das_tpu_torch.ingest.pipeline import load_knowledge_base
 
         load_knowledge_base(self.data, source)
         self._refresh()
+        log.info("Loaded KB: %d nodes, %d links", *self.count_atoms())
+
+    def load_canonical_knowledge_base(self, source: str) -> None:
+        """Load canonical (converter-format) `.metta` file(s) through the
+        native scanner; it raises when the scanner cannot be built."""
+        from das_tpu_torch.ingest.pipeline import load_canonical_knowledge_base
+
+        load_canonical_knowledge_base(self.data, source)
+        self._refresh()
+        log.info("Loaded canonical KB: %d nodes, %d links", *self.count_atoms())
 
     def load_metta_text(self, text: str) -> None:
         from das_tpu_torch.storage.atom_table import load_metta_text

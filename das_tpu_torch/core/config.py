@@ -17,6 +17,11 @@ config only (no environment variable):
 
 `use_tree_fusion` ("auto"/"on"/"off") routes an eligible Or tree to one
 whole-tree job; it too is read from the config only.
+Canonical loads (ingest/pipeline.py) always run the native C++ scanner,
+which raises when it cannot be built: `das_tpu`'s `use_native_ingest`, its
+environment switches `DAS_TPU_NO_NATIVE`, `DAS_TPU_COLUMNAR`,
+`DAS_TPU_NATIVE_LIB` and its unread `ingest_chunk_size` have no
+counterpart.
 `result_cache_size` bounds the fused executor's answered-result cache (0
 disables it); `delta_merge_threshold` bounds the atoms incremental
 commits may add before the store is fully re-finalized.

@@ -13,6 +13,14 @@ class MettaSyntaxError(DasError):
     pass
 
 
+class AtomeseLexerError(DasError):
+    pass
+
+
+class AtomeseSyntaxError(DasError):
+    pass
+
+
 class UndefinedSymbolError(DasError):
     def __init__(self, symbols):
         self.symbols = symbols

@@ -450,29 +450,3 @@ class MettaParser:
         # reject commits the real parse accepts
         scratch.table.terminal_resolver = self.table.terminal_resolver
         return scratch.parse(text)
-
-
-def knowledge_base_file_list(source: str) -> List[str]:
-    """File-or-directory expansion to the `.metta` files of a knowledge
-    base (reference distributed_atom_space.py:81-99)."""
-    import os
-
-    if os.path.isfile(source):
-        answer = [source]
-    elif os.path.isdir(source):
-        answer = [os.path.join(source, f) for f in sorted(os.listdir(source))]
-    else:
-        raise ValueError(f"Invalid knowledge base path: {source}")
-    answer = [f for f in answer if f.endswith(".metta")]
-    if not answer:
-        raise ValueError(f"No MeTTa files found in {source}")
-    return answer
-
-
-def load_knowledge_base(data, source: str):
-    """Parse the `.metta` file(s) at `source` into the AtomSpaceData."""
-    from das_tpu_torch.storage.atom_table import load_metta_file
-
-    for path in knowledge_base_file_list(source):
-        load_metta_file(path, data)
-    return data

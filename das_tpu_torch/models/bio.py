@@ -214,3 +214,64 @@ def build_bio_atomspace(
 
     return data, genes, processes
 
+
+def write_bio_canonical(
+    path: str,
+    n_genes: int = 1000,
+    n_processes: int = 200,
+    members_per_gene: int = 5,
+    n_interactions: int = 2000,
+    n_evaluations: int = 0,
+    seed: int = 42,
+    skew: float = 0.0,
+) -> int:
+    """Stream the SAME KB `build_bio_atomspace` constructs as a canonical
+    .metta file — types, then terminals, then one toplevel expression per
+    line (the converter output format, ingest/canonical.py) — WITHOUT
+    building an intermediate AtomSpaceData.  The rng draw order mirrors the
+    generator exactly, so loading the file reproduces the identical handle
+    set (asserted in tests/test_torch_columnar.py).  This is the input of
+    chip_smoke.py's ingest phase at FlyBase scale.  Returns the number of
+    expression lines written."""
+    rng = random.Random(seed)
+    lines = 0
+    with open(path, "w", buffering=1 << 20) as w:
+        for type_name in ("Gene", "BiologicalProcess", "Member", "Interacts",
+                          "Predicate", "Evaluation", "List"):
+            w.write(f"(: {type_name} Type)\n")
+        for i in range(n_genes):
+            w.write(f'(: "GENE:{i:07d}" Gene)\n')
+        for i in range(n_processes):
+            w.write(f'(: "GO:{i:07d}" BiologicalProcess)\n')
+        if n_evaluations:
+            # the generator interns this terminal lazily; the canonical
+            # format needs every terminal before the first expression
+            w.write('(: "Predicate:has_name" Predicate)\n')
+
+        def gene(i):
+            return f'"Gene GENE:{i:07d}"'
+
+        def proc(i):
+            return f'"BiologicalProcess GO:{i:07d}"'
+
+        for gi in range(n_genes):
+            for p in _member_sample(rng, n_processes, members_per_gene, skew):
+                w.write(f"(Member {gene(gi)} {proc(p)})\n")
+                lines += 1
+        for _ in range(n_interactions):
+            a = _skew_idx(rng, n_genes, skew)
+            b = _skew_idx(rng, n_genes, skew)
+            if a == b:
+                continue
+            w.write(f"(Interacts {gene(a)} {gene(b)})\n")
+            w.write(f"(Interacts {gene(b)} {gene(a)})\n")
+            lines += 2
+        for _ in range(n_evaluations):
+            a = _skew_idx(rng, n_genes, skew)
+            b = _skew_idx(rng, n_processes, skew)
+            w.write(
+                f'(Evaluation "Predicate Predicate:has_name" '
+                f"(List {gene(a)} {proc(b)}))\n"
+            )
+            lines += 1
+    return lines

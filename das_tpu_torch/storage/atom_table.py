@@ -209,7 +209,7 @@ def bucket_from_columns(
     incoming_pairs: List[Tuple[np.ndarray, np.ndarray]],
 ) -> LinkBucket:
     """Build a LinkBucket straight from already-columnized arrays (the
-    columnar ingest path) — same probe-index
+    columnar ingest path, storage/columnar.py) — same probe-index
     semantics as build_bucket, no record objects."""
     for p in range(arity):
         mask = targets[:, p] >= 0
@@ -314,6 +314,10 @@ class AtomSpaceData:
         self.links: Dict[str, LinkRec] = {}
         self._fin: Optional[Finalized] = None
         self.pattern_black_list: List[str] = []
+        #: set by the columnar ingest path (storage/columnar.py
+        #: attach_columnar): numpy-backed base records behind the lazy
+        #: nodes/links views, with a vectorized finalize
+        self.columnar = None
 
     # -- ingestion ---------------------------------------------------------
 
@@ -340,7 +344,13 @@ class AtomSpaceData:
     def add_link(self, expr: Expression) -> None:
         if expr.hash_code in self.links:
             if expr.toplevel:
-                self.links[expr.hash_code].is_toplevel = True
+                set_top = getattr(self.links, "set_toplevel", None)
+                if set_top is not None:
+                    # columnar view: a reconstructed LinkRec is a copy, so
+                    # the flag must be written through to the column
+                    set_top(expr.hash_code)
+                else:
+                    self.links[expr.hash_code].is_toplevel = True
             return
         self.links[expr.hash_code] = LinkRec(
             named_type=expr.named_type,
@@ -374,6 +384,11 @@ class AtomSpaceData:
 
     def finalize(self) -> Finalized:
         if self._fin is not None:
+            return self._fin
+        if self.columnar is not None:
+            from das_tpu_torch.storage.columnar import columnar_finalize
+
+            self._fin = columnar_finalize(self)
             return self._fin
         node_hexes = list(self.nodes.keys())
         by_arity: Dict[int, List[Tuple[str, LinkRec]]] = {}

@@ -25,9 +25,11 @@ host-data level.  A checkpoint with no manifest is read once with a
 warning, and the next save records the digests.
 
 Every file is written through `durable.atomic_write` (write a temporary
-file, fsync, rename, fsync the directory).  Not ported here: the sharded
-slabs (`save_sharded`, `try_restore_sharded`) and the columnar store's
-branches."""
+file, fsync, rename, fsync the directory).  A columnar store
+(storage/columnar.py) saves through its lazy views: its records are
+reconstructed and its registry listed from the digest columns, and it
+restores as a dict store with the same records and tables.  Not ported
+here: the sharded slabs (`save_sharded`, `try_restore_sharded`)."""
 
 from __future__ import annotations
 

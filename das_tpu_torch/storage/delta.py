@@ -27,8 +27,9 @@ and the swap, and `_commit_delta_with_retry` runs a commit through
 so a retry re-stages the same commit.  `commit.delta` / `commit.rebuild`
 are the obs/ events and counters of each version bump.
 
-Left out until its module is ported: the columnar store's branch (the
-columnar ingest)."""
+On a columnar store (storage/columnar.py) a commit's own membership probes
+take the linear digest scan; after the first commit lands, the digest
+indexes are built on a background thread for every later one."""
 
 from __future__ import annotations
 
@@ -263,6 +264,11 @@ class IncrementalCommitMixin:
             obs.event("commit.delta", version=self.delta_version,
                       nodes=len(new_node_hexes), links=len(new_link_hexes))
             obs.counter("commit.deltas").inc()
+        if self.data.columnar is not None:
+            # more commits (and their membership probes) are likely: build
+            # the digest indexes now; this commit kept its own probes on
+            # the linear path
+            self.data.columnar.ensure_indexes()
 
     def _commit_delta_with_retry(self, action) -> None:
         """The store's refresh() commit entry: `fault.commit_retry()`

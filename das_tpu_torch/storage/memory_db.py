@@ -29,6 +29,8 @@ from __future__ import annotations
 import re
 from typing import Any, Dict, List, Optional, Tuple, Union
 
+import numpy as np
+
 from das_tpu_torch.core.hashing import ExpressionHasher
 from das_tpu_torch.core.schema import UNORDERED_LINK_TYPES, WILDCARD
 from das_tpu_torch.storage.atom_table import AtomSpaceData, LinkRec
@@ -36,6 +38,12 @@ from das_tpu_torch.storage.interface import DBInterface
 
 
 class MemoryDB(DBInterface):
+    #: subclasses that override every scan-based get_matched_* method with
+    #: device probes (TensorDB) set this False so prefetch() skips building
+    #: the handle scan lists — at columnar-ingest scale those lists would
+    #: reconstruct tens of millions of records for indexes never read
+    _needs_scan_indexes = True
+
     def __init__(self, data: Optional[AtomSpaceData] = None):
         self.data = data if data is not None else AtomSpaceData()
         self._by_type: Dict[str, List[str]] = {}
@@ -57,6 +65,9 @@ class MemoryDB(DBInterface):
         over just the new tail keeps transaction commits O(delta)."""
         n = len(self.data.links)
         if self._indexed_links == n:
+            return
+        if not self._needs_scan_indexes:
+            self._indexed_links = n
             return
         if self._indexed_links < 0 or self._indexed_links > n:
             self._by_type = {}
@@ -161,6 +172,30 @@ class MemoryDB(DBInterface):
 
     def get_all_nodes(self, node_type: str, names: bool = False) -> List[str]:
         type_hash = self._type_hash(node_type)
+        core = self.data.columnar
+        if core is not None:
+            # vectorized base scan + overlay filter (the lazy-view
+            # iteration would reconstruct every record)
+            tid = core.tid_of_name.get(node_type)
+            sel = (
+                np.flatnonzero(core.node_tid == tid)
+                if tid is not None else np.empty(0, dtype=np.int64)
+            )
+            if names:
+                out = [core.node_name(int(i)) for i in sel]
+                out.extend(
+                    rec.name
+                    for rec in self.data.nodes.overlay.values()
+                    if rec.named_type_hash == type_hash
+                )
+            else:
+                out = [core.node_hex(int(i)) for i in sel]
+                out.extend(
+                    handle
+                    for handle, rec in self.data.nodes.overlay.items()
+                    if rec.named_type_hash == type_hash
+                )
+            return out
         if names:
             return [
                 rec.name

@@ -191,6 +191,8 @@ class TensorDB(IncrementalCommitMixin, MemoryDB):
     the DBInterface surface is MemoryDB's; `get_incoming` and the commit
     path come from IncrementalCommitMixin."""
 
+    _needs_scan_indexes = False
+
     def __init__(self, data: Optional[AtomSpaceData] = None,
                  config: Optional[DasConfig] = None, device=None):
         self.device = resolve_device(device)

@@ -679,6 +679,39 @@ def test_snapshot_commits_restore_on_card_equals_cpu(tmp_path):
 
 
 @pytest.mark.gpu
+def test_columnar_load_on_card_equals_cpu(tmp_path):
+    """A canonical SMALL file loaded through the native scanner's columnar
+    route with device="cuda" holds the tables the CPU load holds, bit for
+    bit, and answers a grounded and a Not query the same."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the loaded tables live on the card")
+    from das_tpu_torch.api.atomspace import DistributedAtomSpace
+    from das_tpu_torch.models.bio import write_bio_canonical
+    from das_tpu_torch.storage.tensor_db import BUCKET_LIST_PADS, BUCKET_PADS
+
+    path = str(tmp_path / "small.metta")
+    write_bio_canonical(path, seed=5, **SMALL)
+    card, cpu = (DistributedAtomSpace(backend="tensor", device=d) for d in ("cuda", "cpu"))
+    for das in (card, cpu):
+        das.load_canonical_knowledge_base(path)
+        assert das.data.columnar is not None
+    for name in ("node_type_id", "incoming_offsets", "incoming_links"):
+        assert torch.equal(getattr(card.db.dev, name).cpu(), getattr(cpu.db.dev, name)), name
+    for arity, cb in cpu.db.dev.buckets.items():
+        gb = card.db.dev.buckets[arity]
+        assert gb.rows.device.type == "cuda" and (gb.size, gb.capacity) == (cb.size, cb.capacity)
+        for name, _ in BUCKET_PADS:
+            assert torch.equal(getattr(gb, name).cpu(), getattr(cb, name)), name
+        for name, _ in BUCKET_LIST_PADS:
+            for g, c in zip(getattr(gb, name), getattr(cb, name)):
+                assert torch.equal(g.cpu(), c), name
+    names = sorted(r.name for r in cpu.data.nodes.values() if r.named_type == "Gene")[:30]
+    batch, _reseeds = _bio_queries(names)
+    queries = batch[0:2] + batch[8:10]
+    assert [card.query(q) for q in queries] == [cpu.query(q) for q in queries]
+
+
+@pytest.mark.gpu
 def test_miner_star_counts_three_ways_on_card():
     """The miner on a SMALL store on the card, then its drawn composites
     with a grounded term and the sub-joints it counted for their scores,

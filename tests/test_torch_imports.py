@@ -218,3 +218,26 @@ def test_wrappers_take_only_cuda_or_cpu_tensors():
         kernels.join_tables(meta, mask, meta, mask, ((0, 0),), (1,), 16)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         kernels.anti_join(meta, mask, meta, mask, ((0, 0),))
+
+
+INGEST_MODULES = sorted(
+    str(p.relative_to(ROOT)) for sub in ("ingest", "convert", "research", "utils")
+    for p in (ROOT / "das_tpu_torch" / sub).rglob("*.py")) + [
+    "das_tpu_torch/storage/columnar.py", "das_tpu_torch/models/bio.py"]
+
+
+@pytest.mark.parametrize("module", INGEST_MODULES)
+def test_ingest_modules_are_scanned(module):
+    """The bulk-ingest path (pipeline, parsers, native scanner binding,
+    columnar store), the converters, research/ and utils/ are among the
+    scanned files, and their imports stay inside numpy, the standard
+    library and the port: no torch either, so converting or parsing never
+    loads CUDA."""
+    assert ROOT / module in _port_files()
+    stdlib = ("__future__", "abc", "argparse", "concurrent", "copy", "csv", "ctypes",
+              "dataclasses", "fcntl", "glob", "hashlib", "io", "json", "logging",
+              "multiprocessing", "os", "pathlib", "random", "re", "statistics", "struct",
+              "subprocess", "sys", "threading", "time", "typing")
+    for name in _imports(ROOT / module):
+        top = name.split(".")[0]
+        assert top in ("numpy", "das_tpu_torch") + stdlib, f"{module} imports {name}"
