@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of das_tpu_torch on one NVIDIA card (H100).
 
-    python3 chip_smoke.py [--scale S] [--seed N] [--only-ingest]
+    python3 chip_smoke.py [--scale S] [--seed N] [--only-ingest | --only-sharded]
 
 Phases, one JSON line each:
 
@@ -107,7 +107,28 @@ Phases, one JSON line each:
                cached tree answer across a commit on SMALL, and get_links
                of 8 genes through the device probes against MemoryDB's
                host scan of the same store, both timed;
-  9. commit  — after the reads, since it changes the store: three
+  9. sharded — the sharded store (parallel/): phase kb's configuration
+               and seed built again and dealt over 8 slabs on the card,
+               DistributedAtomSpace(backend="sharded"); 16 grounded, 16
+               Not, 16 grounded-star, 8 fan-out-star, 8 reseed and 8
+               template-join queries (the template term is materialized,
+               so its join hash-partitions) and the LARGE triangle, each
+               answer against numpy and the tensor store's, the p50 per
+               family beside the tensor store's in this run; the index,
+               broadcast-right and hash-partitioned joins the plans ran
+               (the phase fails if one kind never ran, or a kernel never
+               launched); one query_many of the grounded and Not queries
+               and the same batch from the cache (0 launches, 0 fetches);
+               the or2, or_not (the whole-tree mesh job), and_or and
+               unordered tree families against numpy and the animals
+               Similarity links against the host algebra; one commit of
+               256 genes (incremental; every slab-local index sorted and
+               consistent; the slabs equal to a re-partition of the
+               committed records in handle space; the new genes' answers
+               against numpy); on SMALL a snapshot and restore with every
+               slab bit-equal.  With --only-sharded, phases card, kb and
+               sharded run alone (no kernels line);
+ 10. commit  — after the reads, since it changes the store: three
                transactions of 256 new genes (4 Member links into existing
                processes and 2 Interacts links with an existing gene each,
                1,792 atoms)
@@ -130,7 +151,7 @@ Phases, one JSON line each:
                grows, a new 3-ary link type and a commit past a small
                delta_merge_threshold (a rebuild), each against the host
                algebra;
- 10. miner   — after the commits, on the committed store with its overlay
+ 11. miner   — after the commits, on the committed store with its overlay
                segments: bench.py's miner, PatternMiner(halo_length=2,
                link_rate=0.01, seed=7) on the first 3 genes, expand_halo,
                build_patterns and mine(ngram=3, epochs=100); halo links,
@@ -145,7 +166,7 @@ Phases, one JSON line each:
                whole-table joints left out), all equal; the animals KB's
                miner on the card equal to the memory backend's, its
                unordered candidates through the tree executor's kernels;
- 11. service — on the committed store, attached to a DasService tenant
+ 12. service — on the committed store, attached to a DasService tenant
                (attach_tenant) and driven through its request dicts, the
                methods the gRPC servicer adapts (the card machine has no
                grpc): 8 client threads x 32 DSL queries (96 grounded, 96
@@ -171,7 +192,7 @@ Phases, one JSON line each:
                sleep kernel comes back as a typed deadline status; one
                commit with commit_apply injected once lands on retry while
                queries are in flight, its link in the answers after it;
- 12. durable — last, since it ends the store: the free disk of a new
+ 13. durable — last, since it ends the store: the free disk of a new
                temporary root, then save_snapshot of the committed store
                (wall s, each part's s, each section's bytes), two commits
                of 1,792 atoms with the write-ahead log armed (wall ms beside
@@ -197,7 +218,7 @@ Phases, one JSON line each:
                bundle applied at its version (first-pass rounds with it,
                without it, and after a commit past it, when it is
                discarded).  The root is removed at the end;
- 13. ingest  — after durable (the main store is gone): the same FlyBase-
+ 14. ingest  — after durable (the main store is gone): the same FlyBase-
                shaped configuration and seed written as a canonical file
                (`write_bio_canonical`) into a temporary directory, loaded
                by `load_canonical_knowledge_base` into a fresh store on the
@@ -1943,6 +1964,394 @@ def phase_tree(args, das, data, genes, host, large, smi):
 
 
 # ---- phase 9 ---------------------------------------------------------------------
+
+
+# ---- phase sharded -----------------------------------------------------------------
+
+#: slabs of phase sharded's stores (all on the one card)
+SHARDS = 8
+
+
+def template_join_query(gene_name):
+    """Interacts(g, $V1) and the ordered Interacts template over {V1, V2}:
+    the template term is materialized (no index join), so on the mesh its
+    join hash-partitions both sides."""
+    from das_tpu_torch.query.ast import And, Link, LinkTemplate, Node, TypedVariable, Variable
+
+    return And([Link("Interacts", [Node("Gene", gene_name), Variable("V1")], True),
+                LinkTemplate("Interacts", [TypedVariable("V1", "Gene"),
+                                           TypedVariable("V2", "Gene")], True)])
+
+
+def answer_rowsets(das, query):
+    """{frozenset((variable, row))} of an answer (empty when unmatched)."""
+    matched, answer = das.query_answer(query)
+    row = das.db.fin.row_of_hex
+    got = {frozenset((k, row[h]) for k, h in a.mapping.items()) for a in answer.assignments}
+    return got if matched else set()
+
+
+class JoinKinds:
+    """While active, counts the steps of every sharded plan signature run,
+    by collective: index joins, broadcast-right joins, hash-partitioned
+    joins and multiway steps."""
+
+    def __enter__(self):
+        from das_tpu_torch.parallel import fused_sharded as fs
+
+        self.n = {"index": 0, "broadcast": 0, "partitioned": 0, "multiway": 0}
+        self._fn = fn = fs.run_sharded_conj
+
+        def run(sig, *a):
+            step0 = 1 if sig.multiway else 0
+            self.n["multiway"] += step0
+            for t, q in enumerate(sig.exch_caps[step0:]):
+                if sig.index_joins and sig.index_joins[t] >= 0:
+                    self.n["index"] += 1
+                elif q > 0:
+                    self.n["partitioned"] += 1
+                else:
+                    self.n["broadcast"] += 1
+            return fn(sig, *a)
+
+        fs.run_sharded_conj = run
+        return self
+
+    def __exit__(self, *exc):
+        from das_tpu_torch.parallel import fused_sharded as fs
+
+        fs.run_sharded_conj = self._fn
+        return False
+
+
+def slab_rows(fin, tables):
+    """Per arity and slab, the sorted (type, target...) rows of the slabs in
+    handle space, each handle and type name as its hash in this process
+    (row ids differ between an incrementally committed store and a
+    re-partition)."""
+    atom = np.fromiter((hash(h) for h in fin.hex_of_row), np.int64, len(fin.hex_of_row))
+    types = np.fromiter((hash(t) for t in fin.type_names), np.int64, len(fin.type_names))
+    out = {}
+    for arity, b in tables.buckets.items():
+        for s in range(b.n_shards):
+            n = int(b.slab_sizes[s])
+            tg = b.targets[s][:n].cpu().numpy()
+            cols = [types[b.type_id[s][:n].cpu().numpy()]] + [atom[tg[:, p]] for p in range(arity)]
+            rows = np.stack(cols, axis=1)
+            out[(arity, s)] = rows[np.lexsort(rows.T[::-1])]
+    return out
+
+
+def check_slab_indexes(b):
+    """Every slab-local sorted index of a bucket: keys non-decreasing over
+    the slab's rows and the int64 max after them, perm a permutation of the
+    rows, each key the key of the row perm points to."""
+    I64 = np.iinfo(np.int64).max
+    for s in range(b.n_shards):
+        n = int(b.slab_sizes[s])
+        tid = b.type_id[s].cpu().numpy()[:n].astype(np.int64)
+        tg = b.targets[s].cpu().numpy()[:n].astype(np.int64)
+        cols = [("key_type", "order_by_type", lambda r: tid[r])]
+        for p in range(b.arity):
+            cols.append((("key_type_pos", p), ("order_by_type_pos", p),
+                         lambda r, p=p: (tid[r] << 32) | tg[r, p]))
+            cols.append((("key_pos", p), ("order_by_pos", p), lambda r, p=p: tg[r, p]))
+        for kname, oname, key_of in cols:
+            get = (lambda f: getattr(b, f)[s]) if isinstance(kname, str) else \
+                (lambda f: getattr(b, f[0])[f[1]][s])
+            keys, perm = get(kname).cpu().numpy(), get(oname).cpu().numpy()
+            if (np.diff(keys[:n]) < 0).any() or (keys[n:] != I64).any():
+                raise AssertionError(f"slab {s} {kname}: keys out of order")
+            if not np.array_equal(np.sort(perm[:n]), np.arange(n)):
+                raise AssertionError(f"slab {s} {oname}: not a permutation")
+            if not np.array_equal(keys[:n], key_of(perm[:n])):
+                raise AssertionError(f"slab {s} {kname}: a key is not its row's")
+
+
+def phase_sharded(args, das, data, genes, host, families, large, smi):
+    """The sharded store on the card: the FlyBase-shaped KB of phase kb
+    (built again from the same configuration and seed, so that this
+    phase's commit leaves the tensor store's data alone) dealt over 8 slabs
+    on the one card, DistributedAtomSpace(backend="sharded"); the slice's
+    families against the tensor store's answers and numpy, p50 beside the
+    tensor store's from this run; the collectives each plan step took; one
+    query_many batch and the same batch from the cache; the tree families
+    and the animals Similarity links; one 256-gene commit with its slabs
+    held against a re-partition in handle space; on SMALL a snapshot and
+    restore with every slab bit-equal.  Counters zeroed just before the
+    main path, read just after."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from das_tpu_torch.api.atomspace import DistributedAtomSpace
+    from das_tpu_torch.core.config import DasConfig
+    from das_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from das_tpu_torch.models.animals import animals_metta
+    from das_tpu_torch.parallel.fused_sharded import get_sharded_executor
+    from das_tpu_torch.parallel.sharded_db import ShardedTables
+    from das_tpu_torch.query import compiler
+    from das_tpu_torch.query.fused import FETCH_COUNTS, result_cache_stats
+    from das_tpu_torch.storage.atom_table import load_metta_text
+
+    t_phase = time.perf_counter()
+    cfg = scaled(FLYBASE, args.scale)
+    t0 = time.perf_counter()
+    sdata, sgenes = build_kb(cfg, args.seed)
+    build_s = time.perf_counter() - t0
+    mesh_cfg = lambda **kw: DasConfig(mesh_shape=(SHARDS,), **kw)  # noqa: E731
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    sdas = DistributedAtomSpace(backend="sharded", data=sdata, device=DEVICE, config=mesh_cfg())
+    torch.cuda.synchronize()
+    partition_upload_s = time.perf_counter() - t0
+    store_bytes = torch.cuda.memory_allocated() - mem0
+    db = sdas.db
+    if db.tables.n_shards != SHARDS or db.fin.hex_of_row != das.db.fin.hex_of_row:
+        raise AssertionError("the sharded store's rows differ from phase kb's store")
+
+    # -- the families: (name, [(query, bound names, numpy answer)]) ---------
+    gene_names = [data.nodes[h].name for h in genes]
+    chosen = pick_genes(host, gene_names, args.seed + 21, n=16, n_nonempty=8)
+    name_of_row = lambda r: data.nodes[host.fin.hex_of_row[r]].name  # noqa: E731
+    fams = {
+        "grounded": [(grounded_query(g), ("V2", "V3"), host.grounded(_gene_row(das, g), False))
+                     for g in chosen],
+        "not": [(grounded_query(g, True), ("V2", "V3"), host.grounded(_gene_row(das, g), True))
+                for g in chosen],
+        "grounded_star": families["grounded_star"][:16],
+        "fanout_star": families["fanout_star"],
+        "template_join": [
+            (template_join_query(g), ("V1", "V2"),
+             {(x, y) for x in set(host.partners(_gene_row(das, g)).tolist())
+              for y in set(host.partners(x).tolist())})
+            for g in chosen[:8]],
+    }
+    reseeds = [
+        (reseed_query(*(name_of_row(r) for r in t)), host.reseed_answer(*t))
+        for t in host.reseed_triples(args.seed + 22, 8)]
+    ldas, ldata, lgenes = large
+    lsdas = DistributedAtomSpace(backend="sharded", data=ldata, device=DEVICE, config=mesh_cfg())
+
+    # -- the tensor store's p50 on the same queries (its launches are not
+    # this path's)
+    tensor_p50 = {}
+    for name, cases in fams.items():
+        times = []
+        for q, names, _want in cases:
+            t0 = time.perf_counter()
+            answer_tuples(das, q, names)
+            times.append((time.perf_counter() - t0) * 1e3)
+        tensor_p50[name] = _p50(times)
+    times = []
+    for q, _want in reseeds:
+        t0 = time.perf_counter()
+        answer_rowsets(das, q)
+        times.append((time.perf_counter() - t0) * 1e3)
+    tensor_p50["reseed"] = _p50(times)
+
+    # -- the main path on the mesh: counters zeroed just before ------------
+    torch.cuda.synchronize()
+    compiler.reset_route_counts()
+    reset_launch_counts()
+    fetch0 = FETCH_COUNTS["n"]
+    p50, answers = {}, {}
+    with JoinKinds() as kinds:
+        for name, cases in fams.items():
+            times, got = [], []
+            for q, names, _want in cases:
+                t0 = time.perf_counter()
+                got.append(answer_tuples(sdas, q, names))
+                times.append((time.perf_counter() - t0) * 1e3)
+            p50[name], answers[name] = _p50(times), got
+        times, got = [], []
+        for q, _want in reseeds:
+            t0 = time.perf_counter()
+            got.append(answer_rowsets(sdas, q))
+            times.append((time.perf_counter() - t0) * 1e3)
+        p50["reseed"], answers["reseed"] = _p50(times), got
+        t0 = time.perf_counter()
+        _m, tri = lsdas.query_answer(triangle_query())
+        p50["triangle_large"] = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    launches = dict(LAUNCH_COUNTS)
+    routes = dict(compiler.ROUTE_COUNTS)
+    fetches = FETCH_COUNTS["n"] - fetch0
+    idle = [k for k in TPU_KERNELS if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on the mesh: {idle}")
+    if not all(kinds.n[k] for k in ("index", "broadcast", "partitioned")):
+        raise AssertionError(f"a join kind never ran on the mesh: {kinds.n}")
+    n_queries = sum(len(c) for c in fams.values()) + len(reseeds) + 1
+    if routes["host"] or routes["sharded"] != n_queries:
+        raise AssertionError(f"a query left the mesh: {routes}")
+
+    # -- correctness: numpy and the tensor store ---------------------------
+    n_rows = {}
+    for name, cases in fams.items():
+        n_rows[name] = 0
+        for (q, names, want), (matched, got) in zip(cases, answers[name]):
+            if got != want or matched != bool(want):
+                raise AssertionError(f"sharded {name}: an answer differs from numpy")
+            if answer_tuples(das, q, names) != (matched, got):
+                raise AssertionError(f"sharded {name}: an answer differs from the tensor store")
+            n_rows[name] += len(got)
+    for (q, want), got in zip(reseeds, answers["reseed"]):
+        if got != want or got != answer_rowsets(das, q):
+            raise AssertionError("sharded reseed: an answer differs from numpy")
+    want_tri = HostKB(ldata, lgenes).triangle_count()
+    if len(tri.assignments) != want_tri:
+        raise AssertionError(f"sharded LARGE triangle {len(tri.assignments)} != numpy {want_tri}")
+
+    # -- one query_many batch through the sharded halves (the main path's
+    # runs of the same queries cached them: cleared first), then from the
+    # cache
+    batch = [q for q, _n, _w in fams["grounded"] + fams["not"]]
+    get_sharded_executor(db).results.clear()
+    reset_launch_counts()
+    f0 = FETCH_COUNTS["n"]
+    t0 = time.perf_counter()
+    outs = sdas.query_many(batch)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    batch_fetches = FETCH_COUNTS["n"] - f0
+    batch_launches = dict(LAUNCH_COUNTS)
+    if not batch_fetches or not batch_launches["probe"]:
+        raise AssertionError("sharded query_many did not run the card")
+    for out, (q, _n, want) in zip(outs, fams["grounded"] + fams["not"]):
+        if parse_answer(sdas, out) != {frozenset({("V2", a), ("V3", b)}) for a, b in want}:
+            raise AssertionError("sharded query_many: an answer differs from numpy")
+    hits0 = result_cache_stats(db)["hits"]
+    reset_launch_counts()
+    f0 = FETCH_COUNTS["n"]
+    t0 = time.perf_counter()
+    again = sdas.query_many(batch)
+    cached_ms = (time.perf_counter() - t0) * 1e3
+    if again != outs or FETCH_COUNTS["n"] != f0 or any(LAUNCH_COUNTS.values()):
+        raise AssertionError("sharded query_many from the cache ran the card")
+    cache_hits = result_cache_stats(db)["hits"] - hits0
+    for k in TPU_KERNELS:
+        launches[k] += batch_launches[k]
+
+    # -- the tree families and the animals Similarity links -----------------
+    row = db.fin.row_of_hex.__getitem__
+    tfams = tree_families(host, sdas, sdata, sgenes, args.seed, width=8)
+    tree_lines = {}
+    for name in ("or2", "or_not", "and_or", "unordered"):
+        compiler.reset_route_counts()
+        reset_launch_counts()
+        times = []
+        for q, want, negation in tfams[name]:
+            t0 = time.perf_counter()
+            matched, neg, got = tree_answer(sdas, q, row)
+            times.append((time.perf_counter() - t0) * 1e3)
+            if got != want or neg != negation or matched != bool(want or negation):
+                raise AssertionError(f"sharded tree {name}: an answer differs from numpy")
+        r = dict(compiler.ROUTE_COUNTS)
+        if r["host"] or r["sharded"] != len(tfams[name]):
+            raise AssertionError(f"sharded tree {name} left the mesh: {r}")
+        if name in ("or2", "or_not") and r["sharded_tree_fused"] != len(tfams[name]):
+            raise AssertionError(f"sharded tree {name}: not the whole-tree mesh job: {r}")
+        for k in TPU_KERNELS:
+            launches[k] += LAUNCH_COUNTS[k]
+        tree_lines[name] = {"p50_ms": _p50(times), "routes": {k: v for k, v in r.items() if v}}
+    adas = DistributedAtomSpace(backend="sharded", device=DEVICE, config=mesh_cfg())
+    adas.load_metta_text(animals_metta())
+    amem = DistributedAtomSpace(backend="memory", data=load_metta_text(animals_metta()))
+    reset_launch_counts()
+    for q in animal_queries():
+        if (tree_answer(adas, q, lambda h: h) != tree_answer(amem, q, lambda h: h)):
+            raise AssertionError("sharded animals: an answer differs from the host algebra")
+    for k in TPU_KERNELS:
+        launches[k] += LAUNCH_COUNTS[k]
+
+    # -- one gene commit: incremental, its slabs against a re-partition -----
+    rng = random.Random(args.seed + 23)
+    ref = CommitRef(host)
+    name_of = {h: data.nodes[h].name for h in genes}
+    procs = sorted({ref.hexes[p] for p in host.member[:, 1].tolist()})
+    name_of.update((p, data.nodes[p].name) for p in procs)
+    with_procs = sorted({ref.hexes[g] for g in host.member[:, 0].tolist()})
+    nodes, links, new, _partners = gene_commit(rng, ref, name_of, "GENE:shard", 256, with_procs,
+                                               procs)
+    ref.record(db, links)
+    total, version, tables = db._delta_total, db.delta_version, db.tables
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sdas.commit_transaction(transaction(sdas, nodes, links))
+    torch.cuda.synchronize()
+    commit_ms = (time.perf_counter() - t0) * 1e3
+    atoms = len(new) * 7
+    if (db._delta_total != total + atoms or db.delta_version != version + 1
+            or db.tables is not tables):
+        raise AssertionError("the sharded commit was not incremental")
+    for b in db.tables.buckets.values():
+        check_slab_indexes(b)
+    # a re-partition of a fresh finalize of the committed records (its row
+    # ids differ from the live store's interned ones, its handles do not)
+    t0 = time.perf_counter()
+    fresh = sdata.finalize()
+    rebuilt = ShardedTables(fresh, db.mesh)
+    rebuild_s = time.perf_counter() - t0
+    want_rows, got_rows = slab_rows(fresh, rebuilt), slab_rows(db.fin, db.tables)
+    if want_rows.keys() != got_rows.keys() or not all(
+            np.array_equal(want_rows[k], got_rows[k]) for k in want_rows):
+        raise AssertionError("the committed slabs differ from a re-partition")
+    del rebuilt, fresh
+    reset_launch_counts()
+    for g in [sdas.db.get_node_handle("Gene", n) for n in new[:16]]:
+        for negate in (False, True):
+            if answer_handles(sdas, grounded_query(sdas.data.nodes[g].name, negate)) != \
+                    ref.grounded(g, negate):
+                raise AssertionError("sharded post-commit answer differs from numpy")
+    for k in TPU_KERNELS:
+        launches[k] += LAUNCH_COUNTS[k]
+
+    # -- on SMALL: snapshot and restore, every slab bit-equal ---------------
+    small_data, small_genes = build_kb(SMALL, args.seed)
+    small = DistributedAtomSpace(backend="sharded", data=small_data, device=DEVICE,
+                                 config=mesh_cfg())
+    snames = [small_data.nodes[h].name for h in small_genes[:8]]
+    squeries = [grounded_query(g, negate) for g in snames for negate in (False, True)]
+    want = [answer_handles(small, q) for q in squeries]
+    root = tempfile.mkdtemp(prefix="das_sharded_")
+    try:
+        small.save_snapshot(root)
+        back = DistributedAtomSpace(backend="sharded", device=DEVICE, config=mesh_cfg())
+        back.restore_snapshot(root)
+        if not back.db.tables.restored:
+            raise AssertionError("SMALL sharded restore re-partitioned")
+        n_arrays = 0
+        for arity, b in small.db.tables.buckets.items():
+            got = back.db.tables.buckets[arity].host()
+            for key, arr in b.host().items():
+                if not np.array_equal(got[key], arr):
+                    raise AssertionError(f"SMALL sharded restore: slab {arity}/{key} differs")
+                n_arrays += 1
+        if [answer_handles(back, q) for q in squeries] != want:
+            raise AssertionError("SMALL sharded restore: answers differ")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    per_slab = db.tables.nbytes_per_slab()
+    emit({
+        "phase": "sharded", "card": smi, "shards": SHARDS, "scale": args.scale,
+        "build_s": build_s, "partition_upload_s": partition_upload_s,
+        "store_bytes_allocated": store_bytes, "slab_bytes": per_slab,
+        "slab_bytes_total": sum(per_slab),
+        "p50_ms": p50, "tensor_p50_ms": tensor_p50, "answer_rows": n_rows,
+        "triangle_large_count": len(tri.assignments), "join_kinds": kinds.n,
+        "routes": {k: v for k, v in routes.items() if v}, "host_fetches": fetches,
+        "query_many": {"queries": len(batch), "ms": batch_ms, "host_fetches": batch_fetches,
+                       "cached_ms": cached_ms, "cache_hits": cache_hits},
+        "tree": tree_lines,
+        "commit": {"atoms": atoms, "commit_ms": commit_ms, "repartition_s": rebuild_s},
+        "small_restore_arrays": n_arrays,
+        "launches": {k: launches[k] for k in TPU_KERNELS},
+        "phase_s": time.perf_counter() - t_phase,
+    })
+    return {k: launches[k] for k in TPU_KERNELS}
 
 
 class CommitRef:
@@ -3924,6 +4333,8 @@ def main(argv=None) -> int:
                     help="fraction of the FlyBase-shaped KB's counts (widths are never cut)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=50, help="timed calls per kernel case")
+    ap.add_argument("--only-sharded", action="store_true",
+                    help="phases card, kb and sharded alone (no kernels line)")
     ap.add_argument("--only-ingest", action="store_true",
                     help="phases card and ingest alone (no kernels line): the full-scale "
                          "ingest measurement")
@@ -3976,6 +4387,12 @@ def main(argv=None) -> int:
     gene_names = [data.nodes[h].name for h in genes]
     main_gene = pick_genes(host, gene_names, args.seed, n=1, n_nonempty=1)[0]
     families = star_families(args, data, genes, host, das)
+    if args.only_sharded:
+        phase_sharded(args, das, data, genes, host, families, (ldas, ldata, lgenes), smi)
+        emit({"elapsed_s": time.perf_counter() - t_start})
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     timing = phase_kernels(das, main_gene, families["grounded_star"][0][0],
                            families["fanout_star"][0][0], args.iters)
     launches, slice_p50 = phase_slice(args, das, data, genes, (ldas, ldata, lgenes), small)
@@ -3986,6 +4403,7 @@ def main(argv=None) -> int:
     counted = phase_count_batch(args, das, data, genes, host)
     api = phase_api(args, das, data, genes, host, families, smi)
     tree = phase_tree(args, das, data, genes, host, (ldas, ldata, lgenes), smi)
+    sharded = phase_sharded(args, das, data, genes, host, families, (ldas, ldata, lgenes), smi)
     commit, committed = phase_commit(args, das, data, genes, host, smi, upload_s, slice_p50)
     mined = phase_miner(args, das, smi)
     served = phase_service(args, das, data, genes, host, smi)
@@ -3996,8 +4414,8 @@ def main(argv=None) -> int:
                             {"build_s": build_s, "finalize_upload_s": upload_s}, committed)
     ingested = phase_ingest(args, data, base, genes, host, smi)
     for name in TPU_KERNELS:
-        launches[name] += (counted[name] + api[name] + tree[name] + commit[name] + mined[name]
-                           + served[name] + durable[name] + ingested[name])
+        launches[name] += (counted[name] + api[name] + tree[name] + sharded[name] + commit[name]
+                           + mined[name] + served[name] + durable[name] + ingested[name])
 
     kernels_line = []
     for name, (source, replaces) in TPU_KERNELS.items():

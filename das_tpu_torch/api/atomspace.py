@@ -1,11 +1,14 @@
 """`DistributedAtomSpace` — the public API facade of the PyTorch port
 (port of the main-path subset of `das_tpu/api/atomspace.py`).
 
-Backends: "memory" (the host algebra over AtomSpaceData) and "tensor"
-(the store on a torch device; compilable conjunctive queries run through
-the hand-written CUDA kernels, or their plain PyTorch versions on the
-CPU).  `device=None` means CUDA and raises without a card; pass
-`device="cpu"` for the CPU route.
+Backends: "memory" (the host algebra over AtomSpaceData), "tensor" (the
+store on a torch device; compilable queries run through the hand-written
+CUDA kernels, or their plain PyTorch versions on the CPU) and "sharded"
+(the store dealt over a mesh of S = prod(config.mesh_shape) slabs,
+parallel/sharded_db.py; every kernel runs shard-local).  `device=None`
+means CUDA and raises without a card; pass `device="cpu"` for the CPU
+route.  A sharded store with `device=None` puts one slab on each card at
+hand; with a device, all slabs on it.
 
 `query_many` / `query_many_dispatch` are the batched serving path: the
 fused-compilable queries of a batch dispatch together and pay ONE host
@@ -30,9 +33,7 @@ Bulk loads (ingest/pipeline.py): `load_knowledge_base` parses `.metta`
 and `.scm` files; `load_canonical_knowledge_base` reads converter-format
 files through the native C++ scanner (into the columnar store,
 storage/columnar.py, when the facade is empty), which raises when it
-cannot be built.
-
-Not ported yet: the sharded backend and its sharded checkpoint."""
+cannot be built."""
 
 from __future__ import annotations
 
@@ -47,6 +48,7 @@ from das_tpu_torch.core.exceptions import BreakerOpenError
 from das_tpu_torch.core.schema import UNORDERED_LINK_TYPES, WILDCARD
 from das_tpu_torch.query import compiler as query_compiler
 from das_tpu_torch.query.ast import LogicalExpression, PatternMatchingAnswer
+from das_tpu_torch.query.fused import is_sharded
 from das_tpu_torch.storage.atom_table import AtomSpaceData
 from das_tpu_torch.storage.memory_db import MemoryDB
 from das_tpu_torch.storage.tensor_db import TensorDB
@@ -86,7 +88,7 @@ class _QueryManyJob:
     path for exactly those entries."""
 
     __slots__ = ("das", "queries", "output_format", "plans_lists", "idxs", "pending",
-                 "db_ref", "version", "settle_rtt_ms", "cache_only")
+                 "db_ref", "version", "settle_rtt_ms", "cache_only", "sharded")
 
     def __init__(self, das, queries, output_format, cache_only=False):
         self.das = das
@@ -106,7 +108,9 @@ class _QueryManyJob:
         # materialize this batch's tables through the new registries
         self.db_ref = das.db
         self.version = getattr(das.db, "delta_version", None)
-        if hasattr(das.db, "dev") and queries:
+        # a mesh store takes the sharded executor's dispatch/settle halves
+        self.sharded = is_sharded(das.db)
+        if (self.sharded or isinstance(das.db, TensorDB)) and queries:
             from das_tpu_torch import obs
 
             with obs.span("serve.plan", queries=len(queries)) as sp:
@@ -117,8 +121,9 @@ class _QueryManyJob:
                         self.idxs.append(i)
                 sp.set(compilable=len(self.plans_lists))
             if self.plans_lists:
-                self.pending = query_compiler.execute_fused_many_dispatch(
-                    das.db, self.plans_lists, cache_only=cache_only)
+                dispatch = (query_compiler.execute_sharded_many_dispatch if self.sharded
+                            else query_compiler.execute_fused_many_dispatch)
+                self.pending = dispatch(das.db, self.plans_lists, cache_only=cache_only)
 
     def _stale(self) -> bool:
         """True when the dispatched rounds no longer describe the live
@@ -134,8 +139,9 @@ class _QueryManyJob:
         format each entry with `answer_fn(j, table)`; a failing entry
         degrades alone to the per-query dispatcher.  Yields
         `(query index, answer)`."""
-        for j, table in query_compiler.execute_fused_many_settle_iter(
-                self.das.db, self.plans_lists, pending):
+        settle_iter = (query_compiler.execute_sharded_many_settle_iter if self.sharded
+                       else query_compiler.execute_fused_many_settle_iter)
+        for j, table in settle_iter(self.das.db, self.plans_lists, pending):
             if self.settle_rtt_ms is None and pending.fetch_ms:
                 self.settle_rtt_ms = pending.fetch_ms[0]
             if self._stale():
@@ -159,7 +165,33 @@ class _QueryManyJob:
             # a commit landed between dispatch and settle: drop the
             # dispatched rounds and answer everything on the live store
             self.pending = None
-        if self.pending is not None:
+        if self.pending is not None and self.sharded:
+            pending, self.pending = self.pending, None
+            from das_tpu_torch.parallel.sharded_db import ShardedTable
+
+            def sharded_answer(j, res):
+                if res is None:
+                    if self.cache_only:
+                        raise BreakerOpenError()
+                    # the fused mesh job declined (ceiling, reseed): the
+                    # staged mesh pipeline answers, with the same answers
+                    table = das.db.sharded_execute(self.plans_lists[j])
+                else:
+                    table = ShardedTable(res.var_names, res.vals, res.valid, res.count,
+                                         host_vals=res.host_vals, host_valid=res.host_valid)
+                answer = PatternMatchingAnswer()
+                matched = das.db.materialize(table, answer)
+                out_s = das._format_answer(matched, answer, self.output_format)
+                query_compiler.ROUTE_COUNTS["sharded"] += 1
+                # only the fused answers ran the kernels' whole program
+                if res is not None and das.db.device.type == "cuda":
+                    query_compiler.ROUTE_COUNTS["sharded_kernel"] += 1
+                return out_s
+
+            for i, out_s in self._stream_settled(pending, sharded_answer):
+                done[i] = True
+                yield i, out_s
+        elif self.pending is not None:
             pending, self.pending = self.pending, None
 
             def fused_answer(j, table):
@@ -210,7 +242,7 @@ class DistributedAtomSpace:
         self.config.backend = backend
         self.device = kwargs.get("device")
         data = kwargs.get("data")
-        if data is None and self.config.snapshot_dir and backend == "tensor":
+        if data is None and self.config.snapshot_dir and backend in ("tensor", "sharded"):
             # a populated snapshot root: the newest valid generation, its
             # WAL replayed, and the warm bundle; commits keep logging
             from das_tpu_torch.storage import durable
@@ -235,7 +267,7 @@ class DistributedAtomSpace:
         self.data = data or AtomSpaceData()
         self.pattern_black_list = list(self.config.pattern_black_list)
         self.db = self._make_backend(backend)
-        if self.config.snapshot_dir and backend == "tensor":
+        if self.config.snapshot_dir and backend in ("tensor", "sharded"):
             # a fresh store under a snapshot root: the first generation
             # (the WAL needs a base to replay onto), then the delta log
             from das_tpu_torch.storage import durable
@@ -257,6 +289,10 @@ class DistributedAtomSpace:
             return MemoryDB(self.data)
         if backend == "tensor":
             return TensorDB(self.data, self.config, device=self.device)
+        if backend == "sharded":
+            from das_tpu_torch.parallel.sharded_db import ShardedDB
+
+            return ShardedDB(self.data, self.config, device=self.device)
         raise ValueError(f"Unknown backend: {backend}")
 
     def _refresh(self) -> None:
@@ -285,7 +321,7 @@ class DistributedAtomSpace:
         self.data = AtomSpaceData()
         self.data.pattern_black_list = black_list
         self.db = self._make_backend(self.config.backend)
-        if self.config.snapshot_dir and self.config.backend == "tensor":
+        if self.config.snapshot_dir and self.config.backend in ("tensor", "sharded"):
             # a durable store's clear is a state change: the empty store is
             # a new generation (the old WAL's versions would not continue)
             from das_tpu_torch.storage import durable
@@ -540,10 +576,14 @@ class DistributedAtomSpace:
 
     def save_checkpoint(self, path: str, with_indexes: bool = True) -> None:
         """Write the AtomSpace (records and, by default, the probe indexes)
-        to a checkpoint directory."""
+        to a checkpoint directory; a sharded store also saves its slabs, so
+        a restart uploads them directly (no re-partition)."""
         from das_tpu_torch.storage import checkpoint
 
-        checkpoint.save(self.data, path, with_indexes=with_indexes)
+        if with_indexes and is_sharded(self.db):
+            checkpoint.save_sharded(self.db, path)
+        else:
+            checkpoint.save(self.data, path, with_indexes=with_indexes)
 
     def load_checkpoint(self, path: str) -> None:
         """Replace the contents with a checkpoint (a flat directory, or a

@@ -17,6 +17,10 @@ config only (no environment variable):
 
 `use_tree_fusion` ("auto"/"on"/"off") routes an eligible Or tree to one
 whole-tree job; it too is read from the config only.
+The sharded backend (parallel/sharded_db.py) has S = prod(`mesh_shape`)
+slabs.  `das_tpu`'s `mesh_axis_names` (defined, never read) and
+`sharded_tree_fallback` (the port always runs trees on the mesh) have no
+counterpart.
 Canonical loads (ingest/pipeline.py) always run the native C++ scanner,
 which raises when it cannot be built: `das_tpu`'s `use_native_ingest`, its
 environment switches `DAS_TPU_NO_NATIVE`, `DAS_TPU_COLUMNAR`,
@@ -50,12 +54,15 @@ the metrics port is `transport.serve(metrics_port=)`
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 
 @dataclass
 class DasConfig:
-    backend: str = "tensor"          # "memory" | "tensor"
+    backend: str = "tensor"          # "memory" | "tensor" | "sharded"
+    # the sharded backend's shard count is prod(mesh_shape); None = one
+    # shard per CUDA card at hand (parallel/mesh.py make_mesh)
+    mesh_shape: Optional[Tuple[int, ...]] = None
     # capacity (rows) for padded device result buffers; doubled on overflow
     initial_result_capacity: int = 1 << 14
     max_result_capacity: int = 1 << 24

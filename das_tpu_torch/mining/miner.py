@@ -44,6 +44,7 @@ from das_tpu_torch.query.ast import (
     Variable,
 )
 from das_tpu_torch.query.fused import get_executor, trivial_plan_count
+from das_tpu_torch.storage.tensor_db import TensorDB
 
 
 @dataclass
@@ -143,24 +144,33 @@ class PatternMiner:
 
     def _fast_countable(self) -> bool:
         """The host closed forms (trivial single-term counts, the star
-        fold) need the finalized host store.  In the port only a TensorDB
-        has one, and it always has its device tables too: the JAX
-        package's branches for a finalized store without them (its mesh
-        store) have no port backend to reach them and are not ported."""
+        fold) need only the finalized host store: both device backends
+        have one (TensorDB and the sharded store)."""
         return getattr(self.db, "fin", None) is not None
 
     def count(self, query: LogicalExpression) -> int:
         """Exact match count, the device path first."""
-        if hasattr(self.db, "dev"):
+        if isinstance(self.db, TensorDB):
             n = compiler.count_matches(self.db, query)
             if n is not None:
+                return n
+        elif self._fast_countable():
+            # the sharded store: the host closed forms, then the router
+            plans = compiler.plan_query(self.db, query)
+            n = trivial_plan_count(self.db, plans)
+            if n is not None:
+                return n
+            n = starcount.try_star_count(self.db, plans)
+            if n is not None:
+                compiler.ROUTE_COUNTS["star"] += 1
                 return n
         return self._dispatch_count(query)
 
     def _dispatch_count(self, query: LogicalExpression) -> int:
         """The general path's count once the closed forms have declined:
-        the shared router, with the host algebra where the device path
-        declines or overflows."""
+        the shared router (the mesh, the single device, the host algebra),
+        with the host algebra where the device path declines or
+        overflows."""
         answer = PatternMatchingAnswer()
         matched = compiler.dispatch(self.db, query, answer)
         return len(answer.assignments) if matched else 0
@@ -169,8 +179,10 @@ class PatternMiner:
         """Exact counts of many queries.  The host closed forms first:
         single-term candidates (`trivial_plan_count`) and star joints (the
         star fold).  The remaining conjunctions run through one
-        `count_batch`, and what it declines through the staged pipeline;
-        queries outside the conjunctive subset go to `count` one by one."""
+        `count_batch` on a TensorDB, and what it declines through the
+        staged pipeline; on the sharded store through the router one by
+        one.  Queries outside the conjunctive subset go to `count` one by
+        one."""
         out: List[Optional[int]] = [None] * len(queries)
         if self._fast_countable() and queries:
             plans_list, idxs = [], []
@@ -196,7 +208,7 @@ class PatternMiner:
                 for i, n in zip(star_idxs, starcount.star_count_many(self.db, star_lanes)):
                     out[i] = n
                 compiler.ROUTE_COUNTS["star"] += len(star_lanes)
-            if plans_list:
+            if plans_list and isinstance(self.db, TensorDB):
                 ex = get_executor(self.db)
                 for i, plans, n in zip(idxs, plans_list, ex.count_batch(plans_list)):
                     if n is None:
@@ -204,6 +216,10 @@ class PatternMiner:
                         # honour the reference here: straight to staged
                         n = compiler.count_matches_staged(self.db, plans)
                     out[i] = n
+            elif plans_list:
+                # the sharded store: the closed forms above declined these
+                for i in idxs:
+                    out[i] = self._dispatch_count(queries[i])
         return [self.count(q) if n is None else n for q, n in zip(queries, out)]
 
     def build_patterns(self) -> int:

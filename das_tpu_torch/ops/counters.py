@@ -25,8 +25,12 @@ ROUTE_KEYS = (
     "fused_kernel",
     "fused_multiway",
     "fused_tree",
+    "sharded_tree_fused",
     "staged",
     "tree",
+    "sharded",
+    "sharded_kernel",
+    "sharded_multiway",
     "count_kernel",
     "host",
     "star",

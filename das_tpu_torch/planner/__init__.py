@@ -63,14 +63,16 @@ def record_planned(planned) -> None:
         PLANNER_COUNTS["ref_order"] += 1
 
 
-def observe_settle(planned, actual_join_rows, rounds: int) -> None:
+def observe_settle(planned, actual_join_rows, rounds: int, shards: int = 1) -> None:
     """Fold one settled planned job into the counters: retry rounds paid
-    and estimated vs actual step output rows."""
+    and estimated vs actual step output rows.  The sharded executor's
+    actuals are worst-shard totals, so its estimates are scaled to the
+    even split over `shards`."""
     if rounds <= 1:
         PLANNER_COUNTS["round0"] += 1
     else:
         PLANNER_COUNTS["retries"] += rounds - 1
-    est = sum(int(r) for r in planned.est_join_rows)
+    est = sum(-(-int(r) // max(shards, 1)) for r in planned.est_join_rows)
     act = sum(int(r) for r in actual_join_rows)
     PLANNER_COUNTS["est_rows"] += est
     PLANNER_COUNTS["actual_rows"] += act
@@ -115,13 +117,31 @@ def _term_brief(plan) -> Dict:
 _UNPLANNED = object()
 
 
+def _sharded(db) -> bool:
+    from das_tpu_torch.query.fused import is_sharded
+
+    return is_sharded(db)
+
+
+def _n_shards(db) -> int:
+    return db.mesh.size if _sharded(db) else 1
+
+
+def _executor(db):
+    from das_tpu_torch.query.fused import executor_of
+
+    return executor_of(db)
+
+
 def _explain_plans(db, plans, execute: bool, planned=_UNPLANNED,
                    compile_report: bool = False) -> Dict:
+    sharded = _sharded(db)
     if planned is _UNPLANNED:
         PLANNER_COUNTS["explain"] += 1
-        planned = plan_conjunction(db, list(plans))
+        planned = plan_conjunction(db, list(plans), n_shards=_n_shards(db))
     out: Dict = {
-        "route": planned.route if planned is not None else "fused",
+        "route": (planned.route if planned is not None
+                  else ("sharded" if sharded else "fused")),
         "planner_enabled": enabled(db.config),
         "planned": planned is not None,
     }
@@ -140,9 +160,9 @@ def _explain_plans(db, plans, execute: bool, planned=_UNPLANNED,
         return out
     # the job runs through the executor's own dispatch/settle halves, so
     # "actual" describes the program a query would run (learned caps too)
-    from das_tpu_torch.query.fused import fetch, get_executor
+    from das_tpu_torch.query.fused import fetch
 
-    job = get_executor(db)._exec_job(list(plans), False)
+    job = _executor(db)._exec_job(list(plans), False)
     if job is None:
         out["actual"] = None  # declined: the staged path answers
         if compile_report:
@@ -189,12 +209,14 @@ def _explain_tree_fused(db, fusable, execute: bool, compile_report: bool = False
     the final count of the ONE tree job."""
     PLANNER_COUNTS["explain"] += 1
     pos_sites, neg_plans, _const = fusable
-    pt = plan_tree(db, pos_sites, neg_plans)
+    sharded = _sharded(db)
+    pt = plan_tree(db, pos_sites, neg_plans, n_shards=_n_shards(db))
     # per-site detail from the plans plan_tree already computed: one
     # explain call plans each site once and counts once
     site_plans = pt.site_plans if pt is not None else tuple(None for _ in pos_sites)
     out: Dict = {
-        "route": pt.route if pt is not None else "fused_tree",
+        "route": (pt.route if pt is not None
+                  else ("sharded_tree_fused" if sharded else "fused_tree")),
         "planned": pt is not None,
         "tree_fused": True,
         "planner_enabled": enabled(db.config),
@@ -220,9 +242,7 @@ def _explain_tree_fused(db, fusable, execute: bool, compile_report: bool = False
         )
     if not execute:
         return out
-    from das_tpu_torch.query.fused import get_executor
-
-    job = get_executor(db).execute_tree(pos_sites, neg_plans)
+    job = _executor(db).execute_tree(pos_sites, neg_plans)
     if job is None or job.result is None:
         out["actual"] = None  # declined: the staged tree answers
         if compile_report:
@@ -232,8 +252,10 @@ def _explain_tree_fused(db, fusable, execute: bool, compile_report: bool = False
         out["compile"] = _compile_block(job.tree_sig())
     out["actual"] = {
         "count": job.result.count,
-        # single-device counts are exact after the dedup
-        "count_is_upper_bound": False,
+        # the mesh union dedups shard-locally (cross-shard duplicates die
+        # in the host set), so a sharded count bounds the distinct answers
+        # from above; single-device counts are exact after the dedup
+        "count_is_upper_bound": sharded,
         "matched_any": job.matched_any,
         "retry_rounds": max(0, job.rounds - 1),
         "programs": job.rounds,

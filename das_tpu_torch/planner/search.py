@@ -246,10 +246,13 @@ def _greedy_order(est, terms: List) -> Tuple[int, ...]:
     return tuple(order)
 
 
-def plan_conjunction(db, plans) -> Optional[PlannedProgram]:
+def plan_conjunction(db, plans, *, n_shards: int = 1) -> Optional[PlannedProgram]:
     """A conjunction as a costed whole-plan program, or None when the
     planner declines (no positive term, disconnected positives): the caller
-    then takes the greedy order.  Counts nothing (the executor counts)."""
+    then takes the greedy order.  `n_shards > 1` scales the capacity seeds
+    to per-shard buffers (the sharded executor's join_caps unit) with the
+    2x skew headroom of its probe capacities.  Counts nothing (the
+    executor counts)."""
     if not plans:
         return None
     est = estimator_for(db)
@@ -308,14 +311,18 @@ def plan_conjunction(db, plans) -> Optional[PlannedProgram]:
         join_rows, caps = _star_chain_seeds(est, positives, order_pos, join_rows, caps,
                                             max_cap)
 
+    if n_shards > 1:
+        caps = tuple(pcost.pow2_at_least(max(64, 2 * (-(-c // n_shards)))) for c in caps)
     order = tuple(pos_idx[i] for i in order_pos) + tuple(neg_idx)
     term_rows = tuple(est.rows(plans[i]) for i in order)
-    if mw:
+    # the hand-written kernels run on a card, their plain versions elsewhere
+    on_card = db.device.type == "cuda"
+    if n_shards > 1:
+        route = "sharded_multiway" if mw else ("sharded_kernel" if on_card else "sharded")
+    elif mw:
         route = "fused_multiway"
-    elif db.device.type == "cuda":
-        route = "fused_kernel"   # the hand-written kernels run
     else:
-        route = "fused"          # their plain versions run
+        route = "fused_kernel" if on_card else "fused"
     return PlannedProgram(
         order=order,
         est_term_rows=term_rows,
@@ -380,15 +387,17 @@ def _site_out_rows(db, plans, planned) -> int:
     return max(est.rows(p) for p in pos)
 
 
-def plan_tree(db, pos_sites, neg_plans=None) -> Optional[PlannedTree]:
+def plan_tree(db, pos_sites, neg_plans=None, *, n_shards: int = 1) -> Optional[PlannedTree]:
     """Cost a whole Or/negation plan tree: one PlannedProgram per
     conjunction site (plan_conjunction), the union's size estimate and the
     union/anti placement.  None when there is nothing to plan.  Counts
     nothing (explain() calls it too)."""
     if not pos_sites and not neg_plans:
         return None
-    site_plans = tuple(plan_conjunction(db, list(site)) for site in pos_sites)
-    neg_plan = plan_conjunction(db, list(neg_plans)) if neg_plans else None
+    site_plans = tuple(plan_conjunction(db, list(site), n_shards=n_shards)
+                       for site in pos_sites)
+    neg_plan = (plan_conjunction(db, list(neg_plans), n_shards=n_shards)
+                if neg_plans else None)
     site_rows = tuple(
         _site_out_rows(db, site, planned) for site, planned in zip(pos_sites, site_plans)
     )
@@ -410,6 +419,6 @@ def plan_tree(db, pos_sites, neg_plans=None) -> Optional[PlannedTree]:
         est_union_rows=union_rows,
         union_after=len(site_plans),
         anti_after_union=neg_plans is not None and bool(neg_plans),
-        route="fused_tree",
+        route="sharded_tree_fused" if n_shards > 1 else "fused_tree",
         cost=float(cost),
     )

@@ -44,7 +44,7 @@ from das_tpu_torch.query.ast import (
     Variable,
 )
 from das_tpu_torch.query import starcount
-from das_tpu_torch.query.fused import fetch, get_executor, trivial_plan_count
+from das_tpu_torch.query.fused import fetch, get_executor, is_sharded, trivial_plan_count
 from das_tpu_torch.storage.tensor_db import TensorDB, _next_capacity
 
 
@@ -156,10 +156,17 @@ def _plan_term(db: TensorDB, term, negated: bool) -> TermPlan:
     )
 
 
-def plan_query(db: TensorDB, query: LogicalExpression) -> Optional[List[TermPlan]]:
+#: plan_query's verdict, under unknown_atom_empty, for a conjunction with a
+#: positive term grounded on an atom absent from the store: no match
+EMPTY_PLAN = object()
+
+
+def plan_query(db: TensorDB, query: LogicalExpression, unknown_atom_empty: bool = False):
     """Term plans, or None when the query isn't compilable (or names a
     positive grounded atom absent from the store, which the host algebra
-    answers as no-match)."""
+    answers as no-match).  With unknown_atom_empty that last case returns
+    EMPTY_PLAN instead, so a caller composing plans (the sharded store's Or
+    decomposition) can skip the branch as a static no-match."""
     if asn_mod.CONFIG.get("no_overload"):
         return None
     if isinstance(query, (Link, LinkTemplate)):
@@ -180,6 +187,8 @@ def plan_query(db: TensorDB, query: LogicalExpression) -> Optional[List[TermPlan
                     continue  # tabu on a nonexistent atom never excludes
             else:
                 plans.append(_plan_term(db, term, False))
+    except UnknownAtom:
+        return EMPTY_PLAN if unknown_atom_empty else None
     except NotCompilable:
         return None
     if not plans or all(p.negated for p in plans):
@@ -341,6 +350,40 @@ def execute_fused_many(db: TensorDB,
     return execute_fused_many_settle(db, plans_lists, pending)
 
 
+def execute_sharded_many_dispatch(db, plans_lists: List[List[TermPlan]],
+                                  cache_only: bool = False):
+    """The sharded store's first half of the batched path: answer
+    result-cache hits and enqueue every other job's first round on the
+    mesh, with no host fetch (cache_only: nothing is dispatched)."""
+    from das_tpu_torch.parallel.fused_sharded import get_sharded_executor
+
+    return get_sharded_executor(db).dispatch_many(plans_lists, cache_only=cache_only)
+
+
+def execute_sharded_many_settle_iter(db, plans_lists, pending):
+    """Yields `(index, ShardedFusedResult or None)` as each verdict lands:
+    settle-time declines (ceiling, reseed) in verdict order, dispatch-time
+    declines last.  A None is for the caller to answer on the staged mesh
+    pipeline (db.sharded_execute)."""
+    from das_tpu_torch.parallel.fused_sharded import get_sharded_executor
+
+    seen = [False] * len(plans_lists)
+    for i, res in get_sharded_executor(db).settle_many_iter(pending):
+        seen[i] = True
+        yield i, (None if res is None or res.reseed_needed else res)
+    for i, done in enumerate(seen):
+        if not done:
+            yield i, None
+
+
+def execute_sharded_many_settle(db, plans_lists, pending) -> List:
+    """The list form of execute_sharded_many_settle_iter."""
+    out = [None] * len(plans_lists)
+    for i, res in execute_sharded_many_settle_iter(db, plans_lists, pending):
+        out[i] = res
+    return out
+
+
 def materialize(db: TensorDB, table: Optional[BindingTable],
                 answer: PatternMatchingAnswer) -> bool:
     """Convert a device binding table into frozen OrderedAssignments."""
@@ -394,13 +437,21 @@ def query_on_device(db: TensorDB, query: LogicalExpression,
 
 
 def dispatch(db, query: LogicalExpression, answer: PatternMatchingAnswer) -> bool:
-    """Route one query: the device path for a TensorDB, the host algebra
-    otherwise — and for queries outside the compiled language or whose
-    join outgrows max_result_capacity."""
+    """Route one query: the mesh for a sharded store, the device path for
+    a TensorDB, the host algebra otherwise — and for queries outside the
+    compiled language or whose join outgrows max_result_capacity."""
     matched = None
-    if isinstance(db, TensorDB):
+    sharded = is_sharded(db)
+    if sharded or isinstance(db, TensorDB):
         try:
-            matched = query_on_device(db, query, answer)
+            if sharded:
+                matched = db.query_sharded(query, answer)
+                if matched is not None:
+                    ROUTE_COUNTS["sharded"] += 1
+                    if db.device.type == "cuda":
+                        ROUTE_COUNTS["sharded_kernel"] += 1
+            else:
+                matched = query_on_device(db, query, answer)
         except CapacityOverflowError:
             answer.assignments.clear()
             answer.negation = False

@@ -619,21 +619,22 @@ class _Staged:
     kernels that write the tensors, and the CUDA event recorded after
     them; on the CPU, the tensors themselves."""
 
-    __slots__ = ("groups", "pinned", "event")
+    __slots__ = ("groups", "pinned", "events")
 
-    def __init__(self, groups, pinned, event):
+    def __init__(self, groups, pinned, events):
         self.groups = groups
         self.pinned = pinned
-        self.event = event
+        self.events = events
 
     def wait(self) -> List[List[np.ndarray]]:
         """The host arrays group by group, once this round's copies have
-        landed: waits on the round's own event, not on the stream, so work
-        queued after the copies is not waited for."""
-        if self.event is None:
+        landed: waits on the round's own events, not on the streams, so
+        work queued after the copies is not waited for."""
+        if self.events is None:
             host = [t.numpy() for g in self.groups for t in g]
         else:
-            self.event.synchronize()
+            for event in self.events:
+                event.synchronize()
             host = [h.numpy() for h in self.pinned]
         out, k = [], 0
         for g in self.groups:
@@ -653,9 +654,13 @@ def stage_many(groups) -> _Staged:
     pinned = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in flat_in]
     for h, t in zip(pinned, flat_in):
         h.copy_(t, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(flat_in[0].device))
-    return _Staged(groups, pinned, event)
+    # one event per card the tensors live on (a mesh's slabs may span cards)
+    events = []
+    for dev in dict.fromkeys(t.device for t in flat_in):
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(dev))
+        events.append(event)
+    return _Staged(groups, pinned, events)
 
 
 def fetch_many(groups) -> List[List[np.ndarray]]:
@@ -688,6 +693,14 @@ def retried_fetch(staged: _Staged) -> List[List[np.ndarray]]:
         box[0] = None
 
     return fault.fetch_retry().run(attempt, on_retry=restage)
+
+
+def _numel(vals) -> int:
+    """Elements of a table: one tensor, or a sharded table's per-shard
+    list."""
+    if isinstance(vals, (list, tuple)):
+        return sum(t.numel() for t in vals)
+    return vals.numel()
 
 
 class ResultCache:
@@ -780,7 +793,7 @@ class ResultCache:
         if limit <= 0 or result is None or getattr(result, "reseed_needed", False):
             return
         vals = getattr(result, "vals", None)
-        if vals is not None and vals.numel() > self.MAX_ENTRY_ROWS:
+        if vals is not None and _numel(vals) > self.MAX_ENTRY_ROWS:
             return
         with self._lock:
             self._sync_version()
@@ -861,8 +874,7 @@ def result_cache_stats(db) -> Dict[str, int]:
     caches, the conjunctive results' and the tree's, summed (zeros when no
     executor exists yet)."""
     out = {"hits": 0, "misses": 0, "invalidations": 0}
-    dev = getattr(db, "dev", None)
-    ex = getattr(dev, "_fused_executor", None) if dev is not None else None
+    ex = executor_of(db, create=False)
     if ex is not None:
         for cache in (ex.results, ex.tree_results):
             for k in out:
@@ -1192,6 +1204,9 @@ class _TreeExecJob:
     __slots__ = ("ex", "site_jobs", "neg_job", "names", "rounds", "result",
                  "matched_any", "_done")
 
+    #: the answer route counted at settle (ROUTE_KEYS)
+    route = "fused_tree"
+
     def __init__(self, ex, site_jobs, neg_job):
         self.ex = ex
         self.site_jobs = site_jobs
@@ -1213,16 +1228,38 @@ class _TreeExecJob:
             self.neg_job.plan_sig() if self.neg_job is not None else None,
         )
 
+    # -- the executor's hooks (the sharded job overrides them) --------------
+
+    def _build(self, tree_sig):
+        return build_fused_tree(tree_sig)
+
+    def _flatten(self, out) -> Tuple[torch.Tensor, ...]:
+        """The tree function's (vals, valid, stats) as the tensors to fetch."""
+        return out
+
+    def _unpack(self, flat, host: bool):
+        """(vals, valid, stats) of `_flatten`'s tuple or its host copies."""
+        return flat
+
+    def _blk_len(self, j) -> int:
+        return conj_stats_len(len(j.sigs), len(j.join_caps))
+
+    def _make_result(self, vals, valid, count, host_vals, host_valid, stats):
+        return FusedResult(var_names=self.names, vals=vals, valid=valid, count=count,
+                           reseed_needed=False, host_vals=host_vals, host_valid=host_valid,
+                           stats=stats, rounds=self.rounds)
+
     def dispatch(self) -> Tuple[torch.Tensor, ...]:
         """Enqueue the whole tree at every site's current capacities.
-        Nothing here waits for the card.  Returns (vals, valid, stats)."""
+        Nothing here waits for the card.  Returns the tensors to fetch
+        (`_flatten` of vals, valid, stats)."""
         from das_tpu_torch.planner import PLANNER_COUNTS
 
         tree_sig = self.tree_sig()
         cache = self.ex._tree_progs
         entry = cache.get(tree_sig)
         if entry is None:
-            entry = build_fused_tree(tree_sig)
+            entry = self._build(tree_sig)
             if len(cache) > 64:
                 cache.clear()  # one entry per capacity rung: keep it bounded
             cache[tree_sig] = entry
@@ -1236,9 +1273,9 @@ class _TreeExecJob:
         sp = obs.NOOP_SPAN
         if obs.enabled():
             obs.counter("exec.dispatches").inc()
-            sp = obs.span("exec.dispatch", route="fused_tree", sites=len(self.site_jobs))
+            sp = obs.span("exec.dispatch", route=self.route, sites=len(self.site_jobs))
         with sp:
-            return fn(*((j.arrays, j.keys, j.fvals) for j in self._all_jobs()))
+            return self._flatten(fn(*((j.arrays, j.keys, j.fvals) for j in self._all_jobs())))
 
     def settle(self, host_out, dev_out) -> bool:
         """Consume one round's fetched outputs: slice the per-site blocks
@@ -1248,12 +1285,12 @@ class _TreeExecJob:
         grew — dispatch the whole tree again."""
         from das_tpu_torch.query.compiler import ROUTE_COUNTS
 
-        host_vals, host_valid, stats = host_out
-        vals, valid, _ = dev_out
+        host_vals, host_valid, stats = self._unpack(host_out, True)
+        vals, valid, _ = self._unpack(dev_out, False)
         off = 1
         grew = False
         for idx, j in enumerate(self._all_jobs()):
-            blk_len = conj_stats_len(len(j.sigs), len(j.join_caps))
+            blk_len = self._blk_len(j)
             blk = stats[off:off + blk_len]
             off += blk_len
             if idx in self._done:
@@ -1274,12 +1311,9 @@ class _TreeExecJob:
             # (its conjunction leaves resolve reseeds on the exact program)
             return True
         self.matched_any = any(j.result.count > 0 for j in self.site_jobs)
-        self.result = FusedResult(
-            var_names=self.names, vals=vals, valid=valid, count=int(stats[0]),
-            reseed_needed=False, host_vals=host_vals, host_valid=host_valid,
-            stats=stats, rounds=self.rounds,
-        )
-        ROUTE_COUNTS["fused_tree"] += 1
+        self.result = self._make_result(vals, valid, int(stats[0]), host_vals, host_valid,
+                                        stats)
+        ROUTE_COUNTS[self.route] += 1
         return True
 
 
@@ -1299,7 +1333,7 @@ def run_tree_job(job: _TreeExecJob) -> _TreeExecJob:
             return job
 
 
-def prepare_tree_job(ex, pos_sites, neg_plans) -> Optional[_TreeExecJob]:
+def prepare_tree_job(ex, pos_sites, neg_plans, job_cls=_TreeExecJob) -> Optional[_TreeExecJob]:
     """Build one whole-tree job on executor `ex`: one count-only site job
     per positive Or branch (each takes the whole _exec_job path — planner
     order and seeds, learned capacities, index-join routing, multiway
@@ -1320,7 +1354,7 @@ def prepare_tree_job(ex, pos_sites, neg_plans) -> Optional[_TreeExecJob]:
         if neg_job is None:
             return None
         neg_job.count_route = False
-    return _TreeExecJob(ex, site_jobs, neg_job)
+    return job_cls(ex, site_jobs, neg_job)
 
 
 class FusedExecutor:
@@ -1861,16 +1895,36 @@ def get_executor(db) -> FusedExecutor:
     return ex
 
 
+def is_sharded(db) -> bool:
+    """Whether `db` is a mesh store (parallel/sharded_db.py's ShardedDB)."""
+    from das_tpu_torch.parallel.sharded_db import ShardedDB
+
+    return isinstance(db, ShardedDB)
+
+
+def executor_of(db, create: bool = True):
+    """The executor that serves `db`, the one place that picks it: the
+    sharded executor on a mesh store, the single-device one on a TensorDB,
+    None on a host store (and, with create=False, where none exists yet)."""
+    from das_tpu_torch.storage.tensor_db import TensorDB
+
+    if is_sharded(db):
+        if not create:
+            return getattr(db.tables, "_fused_executor", None)
+        from das_tpu_torch.parallel.fused_sharded import get_sharded_executor
+
+        return get_sharded_executor(db)
+    if isinstance(db, TensorDB):
+        return get_executor(db) if create else getattr(db.dev, "_fused_executor", None)
+    return None
+
+
 # -- warm-state bundle (storage/durable.py) ----------------------------------
 #
 # What a restored store would otherwise re-learn: the learned capacities
 # (each re-learned one is a retry round), the planner estimator's exact
 # statistics (host searches) and count-only cache entries.  All of it is a
 # hint, keyed by delta_version like the result cache.
-
-
-def _warm_executor(db):
-    return get_executor(db) if getattr(db, "dev", None) is not None else None
 
 
 def _jsonable(obj):
@@ -1892,15 +1946,19 @@ def export_warm_state(db) -> Optional[Dict]:
     entries (host ints; binding tables stay on the device and are not
     persisted) and the planner estimator's memoized statistics at the
     store's version."""
-    ex = _warm_executor(db)
+    ex = executor_of(db)
     if ex is None:
         return None
     out: Dict = {"delta_version": int(getattr(db, "delta_version", 0))}
-    caps, salt = {}, ex._cap_salt()
-    for tag, mem in (("_cap_store", ex._caps), ("_exact_cap_store", ex._exact_caps)):
-        view = getattr(ex, tag).view(mem, salt)
-        if view:
-            caps[tag] = view
+    caps = {}
+    # the sharded executor keeps no CapStore: its bundle carries counts and
+    # the planner's statistics only, as in das_tpu
+    if hasattr(ex, "_cap_store"):
+        salt = ex._cap_salt()
+        for tag, mem in (("_cap_store", ex._caps), ("_exact_cap_store", ex._exact_caps)):
+            view = getattr(ex, tag).view(mem, salt)
+            if view:
+                caps[tag] = view
     out["caps"] = caps
     counts = []
     with ex.results._lock:
@@ -1923,7 +1981,7 @@ def apply_warm_state(db, state: Dict) -> bool:
     the snapshot) is discarded whole."""
     if int(state.get("delta_version", -1)) != int(getattr(db, "delta_version", 0)):
         return False
-    ex = _warm_executor(db)
+    ex = executor_of(db)
     if ex is None:
         return False
     for tag, data in (state.get("caps") or {}).items():

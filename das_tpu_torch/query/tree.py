@@ -53,7 +53,7 @@ from das_tpu_torch.query.assignment import (
     UnorderedAssignment,
 )
 from das_tpu_torch.query.ast import PatternMatchingAnswer
-from das_tpu_torch.query.fused import ResultCache, fetch, fetch_many, get_executor
+from das_tpu_torch.query.fused import ResultCache, executor_of, fetch, fetch_many
 from das_tpu_torch.query.plan import (
     NotCompilable,
     PAnd,
@@ -128,7 +128,9 @@ class TreeOps:
     """Single-device op layer of the tree evaluator: the leaves, and the
     table combinators every CTable's (vals, valid) pair goes through.  The
     joins and the negation filter are the hand-written kernels; dedup and
-    concat are PyTorch."""
+    concat are PyTorch.  A store with a `tree_ops` attribute (the sharded
+    store, parallel/sharded_tree.py ShardedTreeOps) substitutes its own
+    layer, with row-sharded tables: the evaluator above is the same."""
 
     def __init__(self, db):
         self.db = db
@@ -171,7 +173,9 @@ class TreeOps:
 
     # -- table combinators -------------------------------------------------
 
-    def join_tables(self, av, am, bv, bm, pairs, extra, cap):
+    def join_tables(self, av, am, bv, bm, pairs, extra, cap, counts=None):
+        # `counts` (left rows, right rows) lets the mesh layer pick the side
+        # it gathers; one device ignores it
         return kernels.join_tables(av, am, bv, bm, pairs, extra, cap)
 
     def dedup(self, vals, valid):
@@ -184,6 +188,16 @@ class TreeOps:
         vals = torch.cat([v for v, _ in parts], dim=0)
         valid = torch.cat([m for _, m in parts], dim=0)
         return vals, valid
+
+    def replicate(self, t: CTable) -> CTable:
+        """A table whole on every shard (the table itself on one device):
+        the pairwise negation and difference predicates need the tabu side
+        whole."""
+        return t
+
+
+def _ops(db) -> TreeOps:
+    return getattr(db, "tree_ops", None) or TreeOps(db)
 
 
 def _finish_uterm(ops, plan, vals, mask) -> Optional[CTable]:
@@ -228,12 +242,13 @@ def join_ctables(db, a: CTable, b: CTable) -> Optional[CTable]:
         b_groups_out.append((names, tuple(off + i for i in range(len(cols)))))
         off += len(cols)
 
-    ops = TreeOps(db)
+    ops = _ops(db)
     cap = max(64, min(max(a.count, 1) * max(b.count, 1),
                       db.config.initial_result_capacity))
     while True:
         vals, valid, total = ops.join_tables(
             a.vals, a.valid, b.vals, b.valid, pairs, tuple(extra_cols), cap,
+            counts=(a.count, b.count),
         )
         t = int(total)
         if t <= cap:
@@ -412,11 +427,13 @@ def union_ctables(ops: TreeOps, tables: List[CTable]) -> List[CTable]:
 def difference(ops: TreeOps, tables: List[CTable], minus: List[CTable]) -> List[CTable]:
     """Exact set difference (the reference Or's de-Morgan branch: joint
     negative answers minus the positive union — plain equality removal,
-    not covering semantics), by the anti-join kernel on all columns."""
+    not covering semantics), by the anti-join kernel on all columns.  The
+    minus side is replicated first: a row must go on whichever shard it
+    lives."""
     minus_by_key: Dict[Tuple, List[CTable]] = {}
     for m in minus:
         if m.count:
-            minus_by_key.setdefault(m.group_key, []).append(_canonicalize(m))
+            minus_by_key.setdefault(m.group_key, []).append(ops.replicate(_canonicalize(m)))
     out = []
     for t in tables:
         if t.count == 0:
@@ -523,12 +540,14 @@ def apply_forbidden(ops: TreeOps, t: CTable, forbidden: List[CTable]) -> CTable:
                 (t.ocols[t.onames.index(v)], tabu.ocols[tabu.onames.index(v)])
                 for v in tabu.onames
             )
-            valid = ops.anti_join(t.vals, valid, tabu.vals, tabu.valid, pairs)
+            tabu_r = ops.replicate(tabu)
+            valid = ops.anti_join(t.vals, valid, tabu_r.vals, tabu_r.valid, pairs)
             continue
-        pred = _excluded_pairs(t, tabu)
+        tabu_r = ops.replicate(tabu)
+        pred = _excluded_pairs(t, tabu_r)
         if pred is None:
             continue
-        excl = (pred & tabu.valid[None, :]).any(dim=1)
+        excl = (pred & tabu_r.valid[None, :]).any(dim=1)
         valid = valid & ~excl
     n = int(valid.sum())
     return CTable(t.kind, t.onames, t.ocols, t.ugroups, t.vals, valid, n)
@@ -734,6 +753,13 @@ def _materialize_fused_tree(db, result, answer: PatternMatchingAnswer) -> bool:
     return materialize_tables(db, [t], answer)
 
 
+def tree_cache(db):
+    """The store's tree cache.  It lives on the same executor as the
+    conjunctive result cache, so a full rebuild (which replaces the
+    executor) drops both."""
+    return executor_of(db).tree_results
+
+
 def query_tree_fused(db, plan: PlanNode, answer: PatternMatchingAnswer,
                      cache=None) -> Optional[bool]:
     """Answer an eligible Or/negation plan tree as ONE tree job: every
@@ -746,7 +772,7 @@ def query_tree_fused(db, plan: PlanNode, answer: PatternMatchingAnswer,
     if sites is None:
         return None
     pos_sites, neg_plans, const_matched = sites
-    ex = get_executor(db)
+    ex = executor_of(db)
     key = version = None
     if cache is not None:
         digest = _plan_digest(plan)
@@ -782,10 +808,10 @@ def eval_plan(db, node: PlanNode) -> NodeResult:
     if isinstance(node, PConst):
         return NodeResult([], False, node.matched)
     if isinstance(node, PTerm):
-        t = TreeOps(db).run_term(node.plan)
+        t = _ops(db).run_term(node.plan)
         return NodeResult([t] if t else [], False, t is not None and t.count > 0)
     if isinstance(node, PUTerm):
-        t = TreeOps(db).run_uterm(node.plan)
+        t = _ops(db).run_uterm(node.plan)
         return NodeResult([t] if t else [], False, t is not None and t.count > 0)
     if isinstance(node, PNot):
         r = eval_plan(db, node.child)
@@ -813,11 +839,11 @@ def _eval_or(db, node: POr) -> NodeResult:
         or_matched = True
         # the reference ignores a positive sub-answer's negation flag
         union_src.extend(r.tables)
-    utables = union_ctables(TreeOps(db), union_src)
+    utables = union_ctables(_ops(db), union_src)
     if negatives:
         joint = PAnd([n.child for n in negatives])
         jr = eval_plan(db, joint)
-        return NodeResult(difference(TreeOps(db), jr.tables, utables), True, or_matched)
+        return NodeResult(difference(_ops(db), jr.tables, utables), True, or_matched)
     return NodeResult(utables, False, or_matched)
 
 
@@ -828,7 +854,7 @@ def _eval_and(db, node: PAnd) -> NodeResult:
     if plans == "fail":
         return NodeResult([], False, False)
     if plans is not None:
-        t = TreeOps(db).conj(plans)
+        t = _ops(db).conj(plans)
         if t is None or t.count == 0:
             return NodeResult([], False, False)
         return NodeResult([t], False, True)
@@ -855,10 +881,10 @@ def _eval_and(db, node: PAnd) -> NodeResult:
                     j = join_ctables(db, ta, tb)
                     if j is not None:
                         joined.append(j)
-            accumulated = union_ctables(TreeOps(db), joined)
+            accumulated = union_ctables(_ops(db), joined)
     result: List[CTable] = []
     for t in accumulated or []:
-        t2 = apply_forbidden(TreeOps(db), t, forbidden)
+        t2 = apply_forbidden(_ops(db), t, forbidden)
         if t2.count:
             result.append(t2)
     return NodeResult(result, False, _total(result) > 0)
@@ -980,9 +1006,7 @@ def query_tree(db, query, answer: PatternMatchingAnswer) -> Optional[bool]:
         plan = build_plan(db, query)
     except NotCompilable:
         return None
-    # the tree cache lives on the same executor as the conjunctive one, so
-    # a full rebuild (which replaces the executor) drops both
-    cache = get_executor(db).tree_results
+    cache = tree_cache(db)
     # whole-tree fusion: the homogeneous Or/negation subset settles as ONE
     # tree job.  A decline (ineligible shape, capacity ceiling, reseed
     # verdict) falls through to the staged evaluator below, with the same

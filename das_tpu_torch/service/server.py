@@ -25,6 +25,10 @@ Prometheus text of obs/ with the serving gauges of `coalescer_stats()`;
 `start_metrics_http` serves it on `GET /metrics`.
 
     python -m das_tpu_torch.service.server --port 7533 --backend tensor --device cpu
+
+A sharded tenant (`--backend sharded --shards 8`) rides the same
+coalescer: its batches take the sharded executor's dispatch and settle
+halves, and the sharded routes count in `coalescer_stats()["routes"]`.
 """
 
 from __future__ import annotations
@@ -535,10 +539,13 @@ if __name__ == "__main__":
 
     ap = argparse.ArgumentParser(description="DAS gRPC service (PyTorch port)")
     ap.add_argument("--port", type=int, default=protocol.DEFAULT_PORT)
-    ap.add_argument("--backend", default=None, help="memory | tensor")
+    ap.add_argument("--backend", default=None, help="memory | tensor | sharded")
     ap.add_argument("--device", default=None, help="cuda (default) | cpu")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="slabs of a sharded tenant (default: one per card)")
     ap.add_argument("--metrics-port", type=int, default=0,
                     help="serve GET /metrics on this port (0 = none)")
     args = ap.parse_args()
-    serve(port=args.port, backend=args.backend, device=args.device,
+    config = DasConfig(mesh_shape=(args.shards,)) if args.shards else None
+    serve(port=args.port, backend=args.backend, device=args.device, config=config,
           metrics_port=args.metrics_port)

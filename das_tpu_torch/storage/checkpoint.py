@@ -28,8 +28,14 @@ Every file is written through `durable.atomic_write` (write a temporary
 file, fsync, rename, fsync the directory).  A columnar store
 (storage/columnar.py) saves through its lazy views: its records are
 reconstructed and its registry listed from the digest columns, and it
-restores as a dict store with the same records and tables.  Not ported
-here: the sharded slabs (`save_sharded`, `try_restore_sharded`)."""
+restores as a dict store with the same records and tables.
+
+A sharded store (parallel/sharded_db.py) also saves its slabs
+(`save_sharded`, ``sharded_S.npz``: every bucket's capacity-padded slab
+columns and slab-local sorted indexes, stacked over the S shards);
+`try_restore_sharded` uploads them directly when the shard count, the
+counts and the content fingerprint still match the finalized store, and
+declines otherwise (the store then re-partitions)."""
 
 from __future__ import annotations
 
@@ -304,3 +310,71 @@ def load(path: str, _verified: bool = False) -> AtomSpaceData:
         if fin is not None:
             data._fin = fin
     return data
+
+
+SHARDED_FILE_FMT = "sharded_{}.npz"
+
+
+def _sharded_payload(db) -> Dict[str, np.ndarray]:
+    """The arrays of one ``sharded_S.npz`` section (save_sharded and the
+    generational snapshot, storage/durable.py write_snapshot)."""
+    arrays: Dict[str, np.ndarray] = {
+        "atom_count": np.array([db.fin.atom_count], dtype=np.int64),
+        "node_count": np.array([db.fin.node_count], dtype=np.int64),
+        "arities": np.array(sorted(db.tables.buckets), dtype=np.int32),
+        "content_sig": np.frombuffer(bytes.fromhex(_content_sig(db.fin)), dtype=np.uint8),
+    }
+    for arity, b in db.tables.buckets.items():
+        p = f"b{arity}_"
+        arrays[p + "meta"] = np.array([b.m_local, b.size], dtype=np.int64)
+        arrays[p + "slab_sizes"] = b.slab_sizes
+        for name, arr in b.host().items():
+            arrays[p + name] = arr
+    return arrays
+
+
+def save_sharded(db, path: str) -> None:
+    """A checkpoint of a sharded store including its slabs: the records and
+    indexes checkpoint plus one npz of the stacked slabs, so a restore
+    uploads them with no re-partition and no per-slab argsort."""
+    from das_tpu_torch.storage import durable
+
+    save(db.data, path)
+    arrays = _sharded_payload(db)
+    name = SHARDED_FILE_FMT.format(db.tables.n_shards)
+    digest = durable.atomic_write(os.path.join(path, name), lambda f: np.savez(f, **arrays))
+    _record_manifest(path, {name: digest})
+
+
+def try_restore_sharded(path: str, fin: Finalized, mesh):
+    """ShardedTables built from the saved slabs, or None when no matching
+    ones exist (another shard count, or a store that moved on since the
+    save: counts, sizes or the content fingerprint differ); the caller
+    then re-partitions.  A sharded checkpoint is never wrong, only
+    possibly absent or stale."""
+    from das_tpu_torch.parallel.sharded_db import ShardedTables, bucket_from_host
+
+    target = os.path.join(path, SHARDED_FILE_FMT.format(mesh.size))
+    if not os.path.exists(target):
+        return None
+    with np.load(target) as npz:
+        if (int(npz["atom_count"][0]) != fin.atom_count
+                or int(npz["node_count"][0]) != fin.node_count):
+            return None
+        # counts survive a content change (one renamed node); the
+        # fingerprint does not
+        if "content_sig" not in npz or npz["content_sig"].tobytes().hex() != _content_sig(fin):
+            return None
+        arities = npz["arities"].tolist()
+        if sorted(arities) != sorted(fin.buckets):
+            return None
+        buckets = {}
+        for arity in arities:
+            p = f"b{arity}_"
+            m_local, size = (int(x) for x in npz[p + "meta"])
+            if size != fin.buckets[arity].size:
+                return None
+            arrays = {k[len(p):]: npz[k] for k in npz.files if k.startswith(p)}
+            buckets[arity] = bucket_from_host(arity, m_local, size, arrays["slab_sizes"],
+                                              arrays, mesh)
+    return ShardedTables.from_buckets(buckets, mesh)

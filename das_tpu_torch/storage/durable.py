@@ -48,6 +48,7 @@ Layout under a snapshot root:
         records.json       host records (checkpoint.py payload)
         indexes.npz        finalized probe indexes
         registry.json      hex_of_row and the type registry
+        sharded_S.npz      (sharded store) the S slabs, checkpoint.py
         warm.json          warm-state bundle
         wal.log            commits since this generation
       gen-000002/ ...      newer generations; `DasConfig.snapshot_keep`
@@ -555,6 +556,7 @@ def _write_generation(db, root: str, gen: int, gen_dir: str, tmp_dir: str,
     """Every section of generation `gen` into `tmp_dir`, the manifest last,
     then the rename to `gen_dir`; the temporary directory is removed if
     anything fails."""
+    from das_tpu_torch.query.fused import is_sharded
     from das_tpu_torch.storage import checkpoint
 
     import numpy as np
@@ -576,6 +578,15 @@ def _write_generation(db, root: str, gen: int, gen_dir: str, tmp_dir: str,
             os.path.join(tmp_dir, checkpoint.REGISTRY_FILE),
             encode(checkpoint._registry_payload(fin)),
         )
+        if is_sharded(db):
+            # a sharded store's slabs: restore uploads them directly when
+            # the shard count and content still match
+            # (checkpoint.try_restore_sharded)
+            name = checkpoint.SHARDED_FILE_FMT.format(db.tables.n_shards)
+            sections[name] = atomic_write(
+                os.path.join(tmp_dir, name),
+                lambda f: np.savez(f, **checkpoint._sharded_payload(db)),
+            )
         warm = _warm_payload(db)
         if warm is not None:
             sections[WARM_FILE] = atomic_write_bytes(os.path.join(tmp_dir, WARM_FILE), warm)
@@ -679,16 +690,27 @@ def restore(root: str, config=None, backend: Optional[str] = None, device=None):
     append to the generation's WAL."""
     from das_tpu_torch import obs
     from das_tpu_torch.core.config import DasConfig
-    from das_tpu_torch.storage.tensor_db import TensorDB
 
     t0 = time.perf_counter()
     config = config or DasConfig()
     backend = backend or config.backend
-    if backend != "tensor":
-        raise ValueError(f"restore: the port restores the tensor backend only, not {backend!r}")
+    if backend not in ("tensor", "sharded"):
+        raise ValueError(f"restore: no device backend {backend!r}")
     with obs.span("dur.restore", backend=backend):
         data, manifest, gen_dir = newest_valid_generation(root)
-        db = TensorDB(data, config, device=device)
+        if backend == "sharded":
+            import dataclasses
+
+            from das_tpu_torch.parallel.sharded_db import ShardedDB
+
+            # checkpoint_path points the store's slab restore at the
+            # verified generation
+            db = ShardedDB(data, dataclasses.replace(config, checkpoint_path=gen_dir),
+                           device=device)
+        else:
+            from das_tpu_torch.storage.tensor_db import TensorDB
+
+            db = TensorDB(data, config, device=device)
         db.delta_version = int(manifest["delta_version"])
         replayed = replay_wal(db, gen_dir, manifest)
         db._wal = DeltaLog(os.path.join(gen_dir, WAL_FILE), db.data)

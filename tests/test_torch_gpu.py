@@ -839,3 +839,59 @@ def test_pipelined_settle_does_not_wait_for_next_group():
     assert got == want
     assert rest == [das.query(q) for q in group_k1]
     assert settle_ms * 4 < card_ms, (settle_ms, card_ms)
+
+
+@pytest.mark.gpu
+def test_sharded_store_on_card_equals_tensor():
+    """The sharded store on SMALL with 8 slabs on cuda:0 against the tensor
+    store on the card: every answer equal, the whole-tree mesh job too, and
+    all five kernels launched on the slabs (an index join, a broadcast-right
+    and a hash-partitioned join, an anti join, a multiway step); the fused
+    sharded job's stats and per-shard tables bit for bit against the same
+    store on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels only run on the GPU")
+    from das_tpu_torch.api.atomspace import DistributedAtomSpace
+    from das_tpu_torch.core.config import DasConfig
+    from das_tpu_torch.models.bio import build_bio_atomspace
+    from das_tpu_torch.parallel import fused_sharded as fs
+    from das_tpu_torch.query import compiler, fused
+    from das_tpu_torch.query.ast import And, Link, LinkTemplate, Node, TypedVariable, Variable
+
+    data, genes, _ = build_bio_atomspace(seed=5, **SMALL)
+    names = [data.nodes[h].name for h in genes]
+    cfg = lambda: DasConfig(mesh_shape=(8,), use_multiway="on")  # noqa: E731
+    card = DistributedAtomSpace(backend="sharded", data=data, device="cuda:0", config=cfg())
+    cpu = DistributedAtomSpace(backend="sharded", data=data, device="cpu", config=cfg())
+    ref = DistributedAtomSpace(backend="tensor", data=data, device="cuda",
+                               config=DasConfig(use_multiway="on"))
+    assert card.db.mesh.devices == (torch.device("cuda", 0),) * 8
+    template = [And([Link("Interacts", [Node("Gene", g), Variable("V1")], True),
+                     LinkTemplate("Interacts", [TypedVariable("V1", "Gene"),
+                                                TypedVariable("V2", "Gene")], True)])
+                for g in names[:4]]
+    batch, reseeds = _bio_queries(names)
+    queries = [*batch, *reseeds, *_tree_queries(names), *template]
+    before = dict(kernels.LAUNCH_COUNTS)
+    fs.get_sharded_executor(card.db).broadcast_limit = 0   # the template joins partition
+    for q in queries:
+        got, want = card.query_answer(q), ref.query_answer(q)
+        assert (bool(got[0]), got[1].negation, got[1].assignments) == \
+            (bool(want[0]), want[1].negation, want[1].assignments)
+    for name in ("probe", "index_join", "join_tables", "anti_join", "multiway"):
+        assert kernels.LAUNCH_COUNTS[name] > before[name], name
+    fs.get_sharded_executor(card.db).broadcast_limit = fs.BROADCAST_LIMIT
+    for q in [*batch[:4], template[0]]:
+        outs = []
+        for das in (card, cpu):
+            ex = fs.get_sharded_executor(das.db)
+            ex._caps.clear()   # the same capacities on both sides
+            job = ex._exec_job(compiler.plan_query(das.db, q), False)
+            while True:
+                out = job.dispatch()
+                host = fused.fetch(*out)
+                if job.settle(host, out):
+                    break
+            outs.append((host[0].tolist(), job.result.host_vals, job.result.host_valid))
+        assert outs[0][0] == outs[1][0]
+        assert np.array_equal(outs[0][1], outs[1][1]) and np.array_equal(outs[0][2], outs[1][2])

@@ -241,3 +241,29 @@ def test_ingest_modules_are_scanned(module):
     for name in _imports(ROOT / module):
         top = name.split(".")[0]
         assert top in ("numpy", "das_tpu_torch") + stdlib, f"{module} imports {name}"
+
+
+PARALLEL_MODULES = sorted(
+    str(p.relative_to(ROOT)) for p in (ROOT / "das_tpu_torch" / "parallel").rglob("*.py"))
+
+
+@pytest.mark.parametrize("module", PARALLEL_MODULES)
+def test_parallel_modules_are_scanned(module):
+    """The mesh (parallel/) is among the scanned files, and its imports stay
+    inside torch, numpy, the standard library and the port: no JAX, no
+    das_tpu and no torch.distributed (the mesh lives in one process)."""
+    assert ROOT / module in _port_files()
+    for name in _imports(ROOT / module):
+        top = name.split(".")[0]
+        assert top in ("torch", "numpy", "das_tpu_torch", "contextlib", "dataclasses",
+                       "typing", "__future__"), f"{module} imports {name}"
+        assert not name.startswith("torch.distributed"), f"{module} imports {name}"
+
+
+def test_sharded_default_device_raises_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid here")
+    from das_tpu_torch.api.atomspace import DistributedAtomSpace
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DistributedAtomSpace(backend="sharded")

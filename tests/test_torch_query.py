@@ -123,8 +123,10 @@ def test_animals_routes():
     # a fused route, as in das_tpu
     pt.query_answer(_build(ast, ANIMALS[-1]))
     assert compiler.ROUTE_COUNTS == {"fused": 2, "fused_kernel": 0, "fused_multiway": 0,
-                                     "fused_tree": 0, "staged": 0, "tree": 1,
-                                     "count_kernel": 0, "host": 0, "star": 0}
+                                     "fused_tree": 0, "sharded_tree_fused": 0, "staged": 0,
+                                     "tree": 1, "sharded": 0, "sharded_kernel": 0,
+                                     "sharded_multiway": 0, "count_kernel": 0, "host": 0,
+                                     "star": 0}
 
 
 def _grounded(gene, negate=False):
