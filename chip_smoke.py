@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of das_tpu_torch on one NVIDIA card (H100).
 
-    python3 chip_smoke.py [--scale S] [--seed N] [--only-ingest | --only-sharded]
+    python3 chip_smoke.py [--scale S] [--seed N]
+                          [--only-ingest | --only-sharded | --only-multiprocess |
+                           --only-ontology | --only-programs]
 
 Phases, one JSON line each:
 
@@ -128,7 +130,38 @@ Phases, one JSON line each:
                against numpy); on SMALL a snapshot and restore with every
                slab bit-equal.  With --only-sharded, phases card, kb and
                sharded run alone (no kernels line);
- 10. commit  — after the reads, since it changes the store: three
+ 10. multiprocess — the mesh across processes: two child processes of
+               this script (gloo on 127.0.0.1, 2 slabs each on cuda:0, S =
+               4) each build phase kb's configuration from the same seed
+               and upload only their own slabs; 16 grounded and Not, 8
+               grounded-star, 4 fan-out-star and 4 template-join count-only
+               queries (the template joins hash-partition, so all_to_all
+               crosses the processes), every count equal to numpy's and
+               the tensor store's, both ranks' stats vectors equal, all
+               five kernels launched in each child; partition, upload and
+               p50 beside phase sharded's, and each collective's calls,
+               wall and host-staging share.  A child that fails or runs
+               past 600 s fails the phase (--only-multiprocess: card, kb
+               and this phase);
+ 11. ontology — the reference benchmark's three query layouts on
+               build_bio_ontology_atomspace at a tenth of phase kb's gene,
+               process and interaction counts (Reactomes and Uniprots
+               scaled from their defaults by the same factor; the cut keeps
+               the smoke inside its limit): QUERY_1 and QUERY_2 with 2
+               genes, 100 rounds each, and QUERY_3 (3 rounds), on
+               the tensor store and an 8-slab sharded store; p50, matched
+               counts, routes and launches; sampled answers against the
+               host algebra (--only-ontology: card and this phase);
+ 12. programs — the program ledger on (obs/proflog.py): the cold start
+               (the kernel library's nvcc build and the scanner's g++ build
+               into empty directories, then loads of them), the slice's and
+               the tree's families, a count group and an 8-slab LARGE store
+               cold then warm, the ledger's snapshot and each modeled
+               site's budget_vs_actual on the card; then a torch.profiler
+               Chrome trace (DasConfig.profiler_trace_dir) that must hold
+               exec.dispatch and the five kernels (--only-programs: card,
+               kb and this phase);
+ 13. commit  — after the reads, since it changes the store: three
                transactions of 256 new genes (4 Member links into existing
                processes and 2 Interacts links with an existing gene each,
                1,792 atoms)
@@ -151,7 +184,7 @@ Phases, one JSON line each:
                grows, a new 3-ary link type and a commit past a small
                delta_merge_threshold (a rebuild), each against the host
                algebra;
- 11. miner   — after the commits, on the committed store with its overlay
+ 14. miner   — after the commits, on the committed store with its overlay
                segments: bench.py's miner, PatternMiner(halo_length=2,
                link_rate=0.01, seed=7) on the first 3 genes, expand_halo,
                build_patterns and mine(ngram=3, epochs=100); halo links,
@@ -166,7 +199,7 @@ Phases, one JSON line each:
                whole-table joints left out), all equal; the animals KB's
                miner on the card equal to the memory backend's, its
                unordered candidates through the tree executor's kernels;
- 12. service — on the committed store, attached to a DasService tenant
+ 15. service — on the committed store, attached to a DasService tenant
                (attach_tenant) and driven through its request dicts, the
                methods the gRPC servicer adapts (the card machine has no
                grpc): 8 client threads x 32 DSL queries (96 grounded, 96
@@ -192,7 +225,7 @@ Phases, one JSON line each:
                sleep kernel comes back as a typed deadline status; one
                commit with commit_apply injected once lands on retry while
                queries are in flight, its link in the answers after it;
- 13. durable — last, since it ends the store: the free disk of a new
+ 16. durable — last, since it ends the store: the free disk of a new
                temporary root, then save_snapshot of the committed store
                (wall s, each part's s, each section's bytes), two commits
                of 1,792 atoms with the write-ahead log armed (wall ms beside
@@ -218,7 +251,7 @@ Phases, one JSON line each:
                bundle applied at its version (first-pass rounds with it,
                without it, and after a commit past it, when it is
                discarded).  The root is removed at the end;
- 14. ingest  — after durable (the main store is gone): the same FlyBase-
+ 17. ingest  — after durable (the main store is gone): the same FlyBase-
                shaped configuration and seed written as a canonical file
                (`write_bio_canonical`) into a temporary directory, loaded
                by `load_canonical_knowledge_base` into a fresh store on the
@@ -2351,6 +2384,632 @@ def phase_sharded(args, das, data, genes, host, families, large, smi):
         "launches": {k: launches[k] for k in TPU_KERNELS},
         "phase_s": time.perf_counter() - t_phase,
     })
+    # the launches, and what phase multiprocess prints beside its own
+    return {**{k: launches[k] for k in TPU_KERNELS}, "p50_ms": p50,
+            "partition_upload_s": partition_upload_s}
+
+
+# ---- phase multiprocess ------------------------------------------------------------
+
+#: shards of the cross-process mesh: 2 processes of 2 slabs each on cuda:0
+MP_PROCESSES, MP_LOCAL = 2, 2
+#: phase ontology's KB is this fraction of phase kb's counts, and runs
+#: this many rounds of QUERY_3 (the reference benchmark runs 10): at phase
+#: kb's counts a QUERY_3 round is ~12,000 queries (2,400 CoA concepts),
+#: 44 s on the tensor store and 107 s on 8 slabs, and the whole smoke would
+#: pass its time limit
+ONTOLOGY_SCALE = 0.1
+Q3_ROUNDS = 3
+#: the query builders phase multiprocess names in its spec file
+MP_BUILDERS = {"grounded_query": grounded_query, "grounded_star_query": grounded_star_query,
+               "fanout_star_query": fanout_star_query,
+               "template_join_query": template_join_query}
+
+
+def multiprocess_cases(args, data, host):
+    """The count-only queries of phase multiprocess, as (family, query
+    builder name, builder arguments), with numpy's count of each: grounded
+    and Not 3-clause queries on genes whose answers are both non-empty,
+    grounded and fan-out stars, and template joins (which hash-partition)."""
+    name_of_row = lambda r: data.nodes[host.fin.hex_of_row[r]].name  # noqa: E731
+    rng = random.Random(args.seed + 31)
+    rows = host.nonempty_genes().tolist()
+    rng.shuffle(rows)
+    picked = []
+    for r in rows:
+        if len(picked) == 8:
+            break
+        if host.grounded(r, True):
+            picked.append(r)
+    stars, fan = star_rows(args, host)
+    cases = []
+    for r in picked:
+        cases.append(("grounded", "grounded_query", [name_of_row(r), False],
+                      len(host.grounded(r, False))))
+        cases.append(("not", "grounded_query", [name_of_row(r), True],
+                      len(host.grounded(r, True))))
+    for g, p1, p2 in stars[:8]:
+        cases.append(("grounded_star", "grounded_star_query",
+                      [name_of_row(g), name_of_row(p1), name_of_row(p2)],
+                      len(host.grounded_star(g, p1, p2))))
+    for p in fan[:4]:
+        cases.append(("fanout_star", "fanout_star_query", [name_of_row(p)],
+                      len(host.fanout_star(p))))
+    for r in picked[:4]:
+        cases.append(("template_join", "template_join_query", [name_of_row(r)],
+                      len({(x, y) for x in set(host.partners(r).tolist())
+                           for y in set(host.partners(x).tolist())})))
+    return cases
+
+
+def multiprocess_child(args) -> int:
+    """One rank of phase multiprocess (chip_smoke.py --multiprocess-child R):
+    joins the gloo group, builds phase kb's configuration and seed, deals it
+    over the 4-shard mesh with only its own 2 slabs uploaded to cuda:0, and
+    counts every case of the spec file through the sharded executor.
+    Prints one RESULT line: per case the stats vector and count, the
+    partition and upload seconds, per family the p50, the kernels launched
+    and each collective's calls, wall and host-staging seconds."""
+    import torch
+
+    from das_tpu_torch.core.config import DasConfig
+    from das_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from das_tpu_torch.parallel import mesh as M
+    from das_tpu_torch.parallel.fused_sharded import get_sharded_executor
+    from das_tpu_torch.parallel.sharded_db import ShardedDB
+    from das_tpu_torch.query import compiler, fused
+
+    rank = args.multiprocess_child
+    with open(args.spec) as f:
+        cases = json.load(f)
+    M.multihost_initialize(args.coordinator, num_processes=MP_PROCESSES, process_id=rank,
+                           timeout_s=600)
+    try:
+        t0 = time.perf_counter()
+        data, _genes = build_kb(scaled(FLYBASE, args.scale), args.seed)
+        build_s = time.perf_counter() - t0
+        mesh = M.make_mesh(MP_PROCESSES * MP_LOCAL, device=DEVICE + ":0")
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        db = ShardedDB(data, DasConfig(), mesh=mesh)
+        torch.cuda.synchronize()
+        partition_upload_s = time.perf_counter() - t0
+        store_bytes = torch.cuda.memory_allocated() - mem0
+        ex = get_sharded_executor(db)
+        queries = [MP_BUILDERS[b](*a) for _fam, b, a, _n in cases]
+        M.reset_collective_stats()
+        reset_launch_counts()
+        out, times = [], {}
+        with JoinKinds() as kinds:
+            for (fam, _b, _a, _n), q in zip(cases, queries):
+                t0 = time.perf_counter()
+                job = ex._exec_job(compiler.plan_query(db, q), True)
+                while True:
+                    dev = job.dispatch()
+                    host = fused.fetch(*dev)
+                    if job.settle(host, dev):
+                        break
+                times.setdefault(fam, []).append((time.perf_counter() - t0) * 1e3)
+                out.append({"stats": [int(x) for x in host[0]], "count": job.result.count,
+                            "reseed": job.result.reseed_needed, "rounds": job.rounds})
+        torch.cuda.synchronize()
+        print("RESULT " + json.dumps({
+            "rank": rank, "local_shards": list(mesh.local_shards), "build_s": build_s,
+            "partition_upload_s": partition_upload_s, "store_bytes_allocated": store_bytes,
+            "slab_bytes": db.tables.nbytes_per_slab(), "cases": out,
+            "p50_ms": {k: _p50(v) for k, v in times.items()}, "join_kinds": kinds.n,
+            "launches": {k: LAUNCH_COUNTS[k] for k in TPU_KERNELS},
+            "collectives": M.COLLECTIVE_STATS}), flush=True)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_multiprocess(args, das, data, host, sharded, smi, meanwhile=None):
+    """The mesh across processes: two child processes of this script
+    (--multiprocess-child), gloo on 127.0.0.1, 2 slabs each on cuda:0 (S =
+    4), each building the KB of phase kb from the same seed and uploading
+    its own slabs; count-only grounded, Not, grounded-star, fan-out-star
+    and template-join queries (hash-partitioned, so all_to_all crosses the
+    processes).  Every count equals numpy's and the tensor store's, both
+    ranks' stats vectors are equal, and all five kernels launched in each
+    child.  A child that fails or outlives its time fails the phase.
+    While the children build, this process counts on the tensor store and
+    then calls `meanwhile()` (host work of a later phase), whose result it
+    returns beside the launches."""
+    import shutil
+    import socket
+    import tempfile
+
+    from das_tpu_torch.query import compiler
+
+    t_phase = time.perf_counter()
+    cases = multiprocess_cases(args, data, host)
+    root = tempfile.mkdtemp(prefix="das_multiprocess_")
+    procs, logs = [], []
+    try:
+        spec = os.path.join(root, "cases.json")
+        with open(spec, "w") as f:
+            json.dump(cases, f)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        for rank in range(MP_PROCESSES):
+            log = open(os.path.join(root, f"rank{rank}.log"), "w+")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--multiprocess-child", str(rank),
+                 "--coordinator", f"127.0.0.1:{port}", "--spec", spec,
+                 "--scale", str(args.scale), "--seed", str(args.seed)],
+                stdout=log, stderr=subprocess.STDOUT, text=True))
+        deadline = time.perf_counter() + 600
+        tensor_counts = [compiler.count_matches(das.db, MP_BUILDERS[b](*a))
+                         for _f, b, a, _n in cases]
+        during = meanwhile() if meanwhile is not None else None
+        wait_s = time.perf_counter()
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        results = []
+        for rank, (p, log) in enumerate(zip(procs, logs)):
+            log.seek(0)
+            text = log.read()
+            lines = [ln for ln in text.splitlines() if ln.startswith("RESULT ")]
+            if p.returncode != 0 or not lines:
+                raise AssertionError(f"multiprocess rank {rank} failed (exit {p.returncode}):\n"
+                                     + text[-4000:])
+            results.append(json.loads(lines[-1][len("RESULT "):]))
+        wait_s = time.perf_counter() - wait_s
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+    r0, r1 = results
+    for i, ((fam, _b, a, want), tensor_n) in enumerate(zip(cases, tensor_counts)):
+        c0, c1 = r0["cases"][i], r1["cases"][i]
+        if c0["stats"] != c1["stats"]:
+            raise AssertionError(f"multiprocess {fam} {a}: the ranks' stats differ")
+        if c0["reseed"] or c0["count"] != want or tensor_n != want:
+            raise AssertionError(f"multiprocess {fam} {a}: count {c0['count']} (reseed "
+                                 f"{c0['reseed']}), tensor {tensor_n}, numpy {want}")
+    for r in results:
+        idle = [k for k in TPU_KERNELS if r["launches"][k] == 0]
+        if idle:
+            raise AssertionError(f"rank {r['rank']}: kernels never launched: {idle}")
+        if not r["join_kinds"]["partitioned"]:
+            raise AssertionError(f"rank {r['rank']}: no hash-partitioned join ran")
+        if [r["local_shards"]] != [[MP_LOCAL * r["rank"] + i for i in range(MP_LOCAL)]]:
+            raise AssertionError(f"rank {r['rank']} holds shards {r['local_shards']}")
+    staging = {
+        r["rank"]: {k: {"calls": v["calls"], "wall_s": v["wall_s"],
+                        "staging_share": (v["staging_s"] / v["wall_s"]) if v["wall_s"] else None}
+                    for k, v in r["collectives"].items()}
+        for r in results}
+    emit({"phase": "multiprocess", "card": smi, "processes": MP_PROCESSES,
+          "slabs_per_process": MP_LOCAL, "backend": "gloo", "scale": args.scale,
+          "cases": len(cases),
+          "counts": {fam: [c["count"] for (f, _b, _a, _n), c in zip(cases, r0["cases"])
+                           if f == fam] for fam in dict.fromkeys(c[0] for c in cases)},
+          "build_s": [r["build_s"] for r in results],
+          "partition_upload_s": [r["partition_upload_s"] for r in results],
+          "sharded_partition_upload_s": sharded.get("partition_upload_s"),
+          "slab_bytes": [r["slab_bytes"] for r in results],
+          "store_bytes_allocated": [r["store_bytes_allocated"] for r in results],
+          "p50_ms": [r["p50_ms"] for r in results], "sharded_p50_ms": sharded.get("p50_ms"),
+          "rounds": [c["rounds"] for c in r0["cases"]], "join_kinds": r0["join_kinds"],
+          "collectives": staging, "launches": [r["launches"] for r in results],
+          "children_wait_s": wait_s, "phase_s": time.perf_counter() - t_phase})
+    return {k: sum(r["launches"][k] for r in results) for k in TPU_KERNELS}, during
+
+
+# ---- phase ontology ----------------------------------------------------------------
+
+
+def same_biological_process(gene_names):
+    """QUERY_1 of the reference benchmark: an N-way And of grounded Member
+    links sharing one process."""
+    from das_tpu_torch.query.ast import And, Link, Node, Variable
+
+    v1 = Variable("V_BiologicalProcess")
+    return And([Link("Member", [Node("Gene", g), v1], True) for g in gene_names])
+
+
+def same_or_inherited_biological_process(gene_names):
+    """QUERY_2 of the reference benchmark: a nested And/Or with
+    Inheritance LinkTemplates."""
+    from das_tpu_torch.query.ast import And, Link, LinkTemplate, Node, Or, TypedVariable, Variable
+
+    v1, v2 = Variable("V1_BiologicalProcess"), Variable("V2_BiologicalProcess")
+    tv1 = TypedVariable("V1_BiologicalProcess", "BiologicalProcess")
+    tv2 = TypedVariable("V2_BiologicalProcess", "BiologicalProcess")
+    tv3 = TypedVariable("V3_BiologicalProcess", "BiologicalProcess")
+    g1, g2 = gene_names[0], gene_names[1]
+    return And([
+        Link("Member", [Node("Gene", g1), v1], True),
+        Or([And([Link("Member", [Node("Gene", g2), v2], True),
+                 LinkTemplate("Inheritance", [tv2, tv3], True),
+                 LinkTemplate("Inheritance", [tv1, tv3], True)]),
+            Link("Member", [Node("Gene", g2), v1], True)]),
+    ])
+
+
+def _dispatch(das, query):
+    from das_tpu_torch.query.ast import PatternMatchingAnswer
+
+    answer = PatternMatchingAnswer()
+    matched = das._dispatch_query(query, answer)
+    return bool(matched), {frozenset(a.mapping.items()) for a in answer.assignments}
+
+
+def coa_pipeline(das, gene_names, db, concepts=None):
+    """QUERY_3 of the reference benchmark through `das`: the Concepts whose
+    name holds "CoA" (the first `concepts` of them, in handle order, when
+    given), their Reactomes through List, those Reactomes' Uniprots
+    through Member, then each Uniprot's processes shared with every gene.
+    Node names are read from `db`.  Returns (matched, every stage's
+    answer)."""
+    from das_tpu_torch.query.ast import And, Link, Node, Variable
+
+    v1 = Variable("v1")
+    members = [Link("Member", [Node("Gene", g), v1], True) for g in gene_names]
+    handles = sorted(db.get_matched_node_name("Concept", "CoA"))
+    if concepts is not None:
+        handles = handles[:concepts]
+    stages, reactomes, uniprots = [], [], []
+    for h in handles:
+        ok, got = _dispatch(das, Link("List", [v1, Node("Concept", db.get_node_name(h))], True))
+        stages.append(got)
+        reactomes += sorted(dict(a)["v1"] for a in got) if ok else []
+    for r in reactomes:
+        ok, got = _dispatch(das, Link("Member", [v1, Node("Reactome", db.get_node_name(r))],
+                                      True))
+        stages.append(got)
+        uniprots += sorted(dict(a)["v1"] for a in got) if ok else []
+    matched = False
+    for u in uniprots:
+        ok, got = _dispatch(das, And([*members, Link(
+            "Member", [Node("Uniprot", db.get_node_name(u)), v1], True)]))
+        stages.append(got)
+        matched = matched or ok
+    return matched, stages
+
+
+def ontology_kb(args):
+    """build_bio_ontology_atomspace at ONTOLOGY_SCALE of phase kb's gene,
+    process and interaction counts, its Reactomes and Uniprots scaled from
+    their defaults by the same factor as the genes: (config, data, genes,
+    build seconds)."""
+    from das_tpu_torch.models.bio import build_bio_ontology_atomspace
+
+    cfg = scaled(FLYBASE, args.scale * ONTOLOGY_SCALE)
+    factor = cfg["n_genes"] / 1000          # the generator's default gene count
+    onto = dict(n_genes=cfg["n_genes"], n_processes=cfg["n_processes"],
+                members_per_gene=cfg["members_per_gene"], n_interactions=cfg["n_interactions"],
+                n_reactomes=max(1, int(100 * factor)), n_uniprots=max(1, int(300 * factor)))
+    t0 = time.perf_counter()
+    data, genes, _procs = build_bio_ontology_atomspace(seed=args.seed, **onto)
+    return onto, data, genes, time.perf_counter() - t0
+
+
+def phase_ontology(args, smi, kb=None):
+    """The reference benchmark's three query layouts on the ontology KB
+    (`ontology_kb`, or `kb` when it was built already): QUERY_1 and QUERY_2
+    with 2 sampled genes, 100 rounds each, and QUERY_3 (Q3_ROUNDS
+    rounds), on the tensor store and on an 8-slab sharded store on the
+    card; p50, matched counts, routes and launches per store.  The two
+    stores' answers are equal on every round; on a sample (2 QUERY_1 pairs,
+    one of them sharing a process, a QUERY_2 pair sharing a process, and
+    QUERY_3's pipeline from one CoA concept) they equal the host algebra's
+    (the memory backend)."""
+    import torch
+
+    from das_tpu_torch.api.atomspace import DistributedAtomSpace
+    from das_tpu_torch.core.config import DasConfig
+    from das_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from das_tpu_torch.query import compiler
+    from das_tpu_torch.query.ast import Link, Node, Variable
+
+    t_phase = time.perf_counter()
+    onto, data, genes, build_s = kb if kb is not None else ontology_kb(args)
+    t0 = time.perf_counter()
+    stores = {"tensor": DistributedAtomSpace(backend="tensor", data=data, device=DEVICE)}
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stores["sharded"] = DistributedAtomSpace(backend="sharded", data=data, device=DEVICE,
+                                             config=DasConfig(mesh_shape=(SHARDS,)))
+    torch.cuda.synchronize()
+    partition_upload_s = time.perf_counter() - t0
+    host = DistributedAtomSpace(backend="memory", data=data)
+    db = host.db
+    names = [data.nodes[h].name for h in genes]
+    rng = random.Random(args.seed + 7)
+    rounds = {1: [rng.sample(names, 2) for _ in range(100)],
+              2: [rng.sample(names, 2) for _ in range(100)],
+              3: [rng.sample(names, 2) for _ in range(Q3_ROUNDS)]}
+    builders = {1: same_biological_process, 2: same_or_inherited_biological_process}
+    out, answers = {}, {}
+    for store, das in stores.items():
+        torch.cuda.synchronize()
+        compiler.reset_route_counts()
+        reset_launch_counts()
+        line, got = {}, {}
+        for layout in (1, 2):
+            times, got[layout] = [], []
+            for sample in rounds[layout]:
+                q = builders[layout](sample)
+                t0 = time.perf_counter()
+                got[layout].append(_dispatch(das, q))
+                times.append((time.perf_counter() - t0) * 1e3)
+            line[f"query{layout}"] = {"rounds": len(times), "p50_ms": _p50(times),
+                                      "matched": sum(ok for ok, _a in got[layout]),
+                                      "answers": sum(len(a) for _ok, a in got[layout])}
+        times, got[3] = [], []
+        for sample in rounds[3]:
+            t0 = time.perf_counter()
+            got[3].append(coa_pipeline(das, sample, db))
+            times.append((time.perf_counter() - t0) * 1e3)
+        line["query3"] = {"rounds": len(times), "p50_ms": _p50(times),
+                          "matched": sum(ok for ok, _st in got[3]),
+                          "queries_per_round": len(got[3][0][1])}
+        torch.cuda.synchronize()
+        line["routes"] = {k: v for k, v in compiler.ROUTE_COUNTS.items() if v}
+        line["launches"] = {k: LAUNCH_COUNTS[k] for k in TPU_KERNELS}
+        if compiler.ROUTE_COUNTS["host"]:
+            raise AssertionError(f"ontology on {store}: a query left the card: {line['routes']}")
+        out[store], answers[store] = line, got
+    for layout in (1, 2, 3):
+        if answers["tensor"][layout] != answers["sharded"][layout]:
+            raise AssertionError(f"ontology: QUERY_{layout}'s answers differ between the stores")
+
+    # the host algebra on a sample (one host query takes seconds here): a
+    # timed QUERY_1 pair, and a QUERY_1 and a QUERY_2 pair that share a
+    # process, found through the tensor store, so that an answer is not
+    # empty (two random genes rarely share one at this size)
+    v = Variable("V")
+    gene_set = set(names)
+    shared = None
+    for g1 in rng.sample(names, 64):
+        _ok, procs = _dispatch(stores["tensor"], Link("Member", [Node("Gene", g1), v], True))
+        for p in sorted(dict(a)["V"] for a in procs):
+            _ok, members = _dispatch(stores["tensor"], Link(
+                "Member", [v, Node("BiologicalProcess", db.get_node_name(p))], True))
+            others = sorted(n for n in (db.get_node_name(dict(a)["V"]) for a in members)
+                            if n != g1 and n in gene_set)
+            if others:
+                shared = [g1, others[0]]
+                break
+        if shared is not None:
+            break
+    checks = [(1, rounds[1][0]), (1, shared), (2, shared)]
+    t0 = time.perf_counter()
+    host_matched = 0
+    for layout, sample in checks:
+        q = builders[layout](sample)
+        want = _dispatch(host, q)
+        host_matched += want[0]
+        for store, das in stores.items():
+            if _dispatch(das, q) != want:
+                raise AssertionError(f"ontology on {store}: QUERY_{layout} {sample} differs "
+                                     "from the host algebra")
+    want = coa_pipeline(host, rounds[3][0], db, concepts=1)
+    for store, das in stores.items():
+        if coa_pipeline(das, rounds[3][0], db, concepts=1) != want:
+            raise AssertionError(f"ontology on {store}: QUERY_3 differs from the host algebra")
+    host_check_s = time.perf_counter() - t0
+    idle = [k for k in TPU_KERNELS if not any(out[s]["launches"][k] for s in out)]
+    emit({"phase": "ontology", "card": smi, "config": onto, "scale": args.scale,
+          "nodes": len(data.nodes), "links": len(data.links), "build_s": build_s,
+          "upload_s": upload_s, "partition_upload_s": partition_upload_s,
+          "shards": SHARDS, "stores": out, "kernels_never_launched": idle,
+          "host_checks": {"query1": 2, "query2": 1, "query3_concepts": 1,
+                          "query3_stages": len(want[1]), "matched": host_matched,
+                          "s": host_check_s},
+          "phase_s": time.perf_counter() - t_phase})
+    launches = {k: sum(out[s]["launches"][k] for s in out) for k in TPU_KERNELS}
+    del stores
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---- phase programs ----------------------------------------------------------------
+
+#: the sites with a byte model (the exact program has none, as in das_tpu)
+MODELED_SITES = ("fused", "fused_tree", "count_batch", "sharded", "sharded_tree")
+#: a CUDA kernel's name prefix in csrc/, per kernel
+KERNEL_PREFIX = {"probe": "pr_", "index_join": "ij_", "join_tables": "jt_", "anti_join": "aj_",
+                 "multiway": "mw_"}
+
+
+def program_workload(das, sdas, families, picks, lpicks):
+    """The slice's and the tree's families on the tensor store (grounded,
+    Not, grounded stars, Ors of two chains), a count group of the grounded
+    queries, and grounded, Not and Or queries on an 8-slab store, with
+    every result cache cleared first."""
+    from das_tpu_torch.parallel.fused_sharded import get_sharded_executor
+    from das_tpu_torch.query import compiler, fused
+
+    for ex in (fused.get_executor(das.db), get_sharded_executor(sdas.db)):
+        ex.results.clear()
+        ex.tree_results.clear()
+    for q, _n, _w in families["grounded"][:8]:
+        das.query_answer(q)
+    for g in picks:
+        das.query_answer(grounded_query(g, True))
+    for q, _n, _w in families["grounded_star"][:8]:
+        das.query_answer(q)
+    for a, b in zip(picks[:4], picks[4:8]):
+        das.query_answer(or_query(a, b))
+    fused.get_executor(das.db).count_batch(
+        [compiler.plan_query(das.db, grounded_query(g)) for g in picks])
+    for a, b in zip(lpicks[:4], lpicks[4:8]):
+        sdas.query_answer(grounded_query(a))
+        sdas.query_answer(grounded_query(a, True))
+        sdas.query_answer(or_query(a, b))
+
+
+def or_query(g1, g2):
+    """Or of two grounded chains Member(g, $V3) and Member($V2, $V3) (one
+    whole-tree job)."""
+    from das_tpu_torch.query.ast import And, Link, Node, Or, Variable
+
+    return Or([And([Link("Member", [Node("Gene", g), Variable("V3")], True),
+                    Link("Member", [Variable("V2"), Variable("V3")], True)]) for g in (g1, g2)])
+
+
+def phase_programs(args, das, data, genes, host, families, large, smi):
+    """The program ledger on the card (obs/proflog.py): the cold start (the
+    kernel library's nvcc build and the scanner's g++ build into empty
+    directories, then loads of what they built), the slice's and the
+    tree's families, a count group and an 8-slab store's families run once
+    cold (first calls: "compiles") and once warm (ledger hits), the
+    ledger's snapshot after each, and every modeled site's
+    budget_vs_actual on the card.  Then, with obs annotations on and
+    DasConfig.profiler_trace_dir set, a torch.profiler trace of a grounded,
+    a Not and a grounded-star query, which must hold exec.dispatch and the
+    five kernels."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from das_tpu_torch import obs
+    from das_tpu_torch.api.atomspace import DistributedAtomSpace
+    from das_tpu_torch.core.config import DasConfig
+    from das_tpu_torch.ingest import native
+    from das_tpu_torch.kernels import LAUNCH_COUNTS, launch, reset_launch_counts
+    from das_tpu_torch.obs import proflog, torchprof
+    from das_tpu_torch.query import fused
+
+    t_phase = time.perf_counter()
+    ldas, ldata, lgenes = large
+    sdas = DistributedAtomSpace(backend="sharded", data=ldata, device=DEVICE,
+                                config=DasConfig(mesh_shape=(SHARDS,)))
+    gene_names = [data.nodes[h].name for h in genes]
+    picks = pick_genes(host, gene_names, args.seed + 41, n=8, n_nonempty=8)
+    lpicks = pick_genes(HostKB(ldata, lgenes), [ldata.nodes[h].name for h in lgenes],
+                        args.seed + 41, n=8, n_nonempty=8)
+    root = tempfile.mkdtemp(prefix="das_programs_")
+    saved = (launch.BUILD_DIR, launch._LIB, native.BUILD_DIR, native._lib)
+    proflog.configure(enabled=True)
+    proflog.reset()
+    try:
+        # -- the cold start: fresh builds, then loads of the built libraries
+        try:
+            launch.BUILD_DIR, launch._LIB = Path(root) / "kernels", None
+            launch.library()
+            launch._LIB = None
+            launch.library()
+            native.BUILD_DIR, native._lib = Path(root) / "native", None
+            native.get_lib()
+            native._lib = None
+            native.get_lib()
+        finally:
+            launch.BUILD_DIR, launch._LIB, native.BUILD_DIR, native._lib = saved
+        builds = {r["site"]: {"first_s": r["first_compile_s"], "compiles": r["compiles"]}
+                  for r in proflog.rows() if r["kind"] == "build"}
+        cold_start = proflog.snapshot()
+        if set(builds) != {"kernel_build", "scanner_build"} or \
+                cold_start["persistent_cache_hits"] != 2 or cold_start["cold_start_s"] <= 0:
+            raise AssertionError(f"programs: the cold start was not recorded: {cold_start}")
+
+        # -- the families, cold then warm; counters zeroed just before.  The
+        # tree functions earlier phases built were built with the ledger off:
+        # build them anew, so that they are instrumented
+        fused.get_executor(das.db)._tree_progs.clear()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        passes = {}
+        for label in ("cold", "warm"):
+            before = proflog.snapshot()
+            t0 = time.perf_counter()
+            program_workload(das, sdas, families, picks, lpicks)
+            torch.cuda.synchronize()
+            after = proflog.snapshot()
+            passes[label] = {"s": time.perf_counter() - t0,
+                             "compiles": after["compiles"] - before["compiles"],
+                             "calls": after["calls"] - before["calls"],
+                             "ledger_hits": after["ledger_hits"] - before["ledger_hits"],
+                             "launch_notes": after["launches"] - before["launches"]}
+        launches = dict(LAUNCH_COUNTS)
+        snap = proflog.snapshot()
+        missing = [s for s in MODELED_SITES if s not in snap["budget_vs_actual"]]
+        if missing:
+            raise AssertionError(f"programs: no budget_vs_actual for {missing}: {snap}")
+        if passes["cold"]["compiles"] == 0 or passes["warm"]["ledger_hits"] == 0:
+            raise AssertionError(f"programs: no first calls or no hits: {passes}")
+        per_site = {}
+        for r in proflog.rows():
+            if r["kind"] != "eager":
+                continue
+            e = per_site.setdefault(r["site"], {"entries": 0, "compiles": 0, "hits": 0,
+                                                "compile_s": 0.0, "peak_bytes_max": 0,
+                                                "modeled_bytes_max": 0, "ratios": []})
+            e["entries"] += 1
+            e["compiles"] += r["compiles"]
+            e["hits"] += r["hits"]
+            e["compile_s"] += r["compile_s"]
+            e["peak_bytes_max"] = max(e["peak_bytes_max"], r["peak_bytes"] or 0)
+            e["modeled_bytes_max"] = max(e["modeled_bytes_max"], r["modeled_bytes"] or 0)
+            if r["budget_vs_actual_ratio"] is not None:
+                e["ratios"].append(r["budget_vs_actual_ratio"])
+        for e in per_site.values():
+            rs = sorted(e.pop("ratios"))
+            e["ratio_min_p50_max"] = [rs[0], _p50(rs), rs[-1]] if rs else None
+        kernel_notes = {}
+        for r in proflog.rows(site="kernel"):
+            k = kernel_notes.setdefault(r["kind"], [0, 0.0])
+            k[0] += r["launches"]
+            k[1] += r["trace_s"]
+        if set(kernel_notes) != {"cuda"}:
+            raise AssertionError(f"programs: kernel notes of kind {sorted(kernel_notes)}")
+
+        # -- a profiler trace
+        proflog.configure(enabled=False)
+        obs.configure(annotations=True)
+        trace_dir = os.path.join(root, "trace")
+        if not obs.maybe_start_trace(DasConfig(profiler_trace_dir=trace_dir)):
+            raise AssertionError("programs: the profiler trace did not start")
+        das.query_answer(families["grounded"][0][0])
+        das.query_answer(grounded_query(picks[0], True))
+        cfg = das.db.config
+        mode, cfg.use_multiway = cfg.use_multiway, "on"
+        try:
+            das.query_answer(families["grounded_star"][0][0])
+        finally:
+            cfg.use_multiway = mode
+        torch.cuda.synchronize()
+        obs.maybe_stop_trace()
+        path = torchprof.last_trace_path()
+        trace_bytes = os.path.getsize(path)
+        with open(path) as f:
+            names = {str(e.get("name", "")) for e in json.load(f).get("traceEvents", [])}
+        in_trace = {k: sorted(n for n in names if re.search(rf"\b{p}\w*kernel", n))[:3]
+                    for k, p in KERNEL_PREFIX.items()}
+        absent = [k for k, v in in_trace.items() if not v]
+        if "exec.dispatch" not in names or absent:
+            raise AssertionError(f"programs: the trace lacks exec.dispatch or kernels {absent}")
+    finally:
+        proflog.reset()
+        proflog.configure(enabled=False)
+        obs.configure(annotations=False)
+        shutil.rmtree(root, ignore_errors=True)
+    del sdas
+    emit({"phase": "programs", "card": smi, "builds": builds,
+          "cold_start": {k: cold_start[k] for k in ("cold_start_s", "persistent_cache_hits",
+                                                      "entries")},
+          "passes": passes, "snapshot": snap, "sites": per_site,
+          "kernel_notes": {k: {"launches": n, "wrapper_s": s}
+                           for k, (n, s) in kernel_notes.items()},
+          "trace": {"bytes": trace_bytes, "kernels": in_trace},
+          "launches": {k: launches[k] for k in TPU_KERNELS},
+          "phase_s": time.perf_counter() - t_phase})
     return {k: launches[k] for k in TPU_KERNELS}
 
 
@@ -4338,6 +4997,16 @@ def main(argv=None) -> int:
     ap.add_argument("--only-ingest", action="store_true",
                     help="phases card and ingest alone (no kernels line): the full-scale "
                          "ingest measurement")
+    ap.add_argument("--only-multiprocess", action="store_true",
+                    help="phases card, kb and multiprocess alone (no kernels line)")
+    ap.add_argument("--only-ontology", action="store_true",
+                    help="phases card and ontology alone (no kernels line)")
+    ap.add_argument("--only-programs", action="store_true",
+                    help="phases card, kb and programs alone (no kernels line)")
+    # one rank of phase multiprocess (the phase starts these itself)
+    ap.add_argument("--multiprocess-child", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--coordinator", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--spec", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -4348,8 +5017,20 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from das_tpu_torch.api.atomspace import DistributedAtomSpace
 
+    if args.multiprocess_child is not None:
+        return multiprocess_child(args)
+
+    def done():
+        emit({"elapsed_s": time.perf_counter() - t_start})
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+
     t_start = time.perf_counter()
     smi = phase_card()
+    if args.only_ontology:
+        phase_ontology(args, smi)
+        return done()
 
     cfg = scaled(FLYBASE, args.scale)
     t0 = time.perf_counter()
@@ -4360,10 +5041,7 @@ def main(argv=None) -> int:
         emit({"phase": "kb", "scale": args.scale, "nodes": base[0], "links": base[1],
               "build_s": build_s})
         phase_ingest(args, data, base, genes, HostKB(data, genes), smi)
-        emit({"elapsed_s": time.perf_counter() - t_start})
-        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                     "count": torch.cuda.device_count()}})
-        return 0
+        return done()
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -4389,10 +5067,13 @@ def main(argv=None) -> int:
     families = star_families(args, data, genes, host, das)
     if args.only_sharded:
         phase_sharded(args, das, data, genes, host, families, (ldas, ldata, lgenes), smi)
-        emit({"elapsed_s": time.perf_counter() - t_start})
-        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                     "count": torch.cuda.device_count()}})
-        return 0
+        return done()
+    if args.only_multiprocess:
+        phase_multiprocess(args, das, data, host, {}, smi)
+        return done()
+    if args.only_programs:
+        phase_programs(args, das, data, genes, host, families, (ldas, ldata, lgenes), smi)
+        return done()
     timing = phase_kernels(das, main_gene, families["grounded_star"][0][0],
                            families["fanout_star"][0][0], args.iters)
     launches, slice_p50 = phase_slice(args, das, data, genes, (ldas, ldata, lgenes), small)
@@ -4404,6 +5085,13 @@ def main(argv=None) -> int:
     api = phase_api(args, das, data, genes, host, families, smi)
     tree = phase_tree(args, das, data, genes, host, (ldas, ldata, lgenes), smi)
     sharded = phase_sharded(args, das, data, genes, host, families, (ldas, ldata, lgenes), smi)
+    # the ontology KB is built on the host while the multiprocess children
+    # build theirs
+    multi, onto_kb = phase_multiprocess(args, das, data, host, sharded, smi,
+                                        meanwhile=lambda: ontology_kb(args))
+    onto = phase_ontology(args, smi, onto_kb)
+    del onto_kb
+    programs = phase_programs(args, das, data, genes, host, families, (ldas, ldata, lgenes), smi)
     commit, committed = phase_commit(args, das, data, genes, host, smi, upload_s, slice_p50)
     mined = phase_miner(args, das, smi)
     served = phase_service(args, das, data, genes, host, smi)
@@ -4414,8 +5102,9 @@ def main(argv=None) -> int:
                             {"build_s": build_s, "finalize_upload_s": upload_s}, committed)
     ingested = phase_ingest(args, data, base, genes, host, smi)
     for name in TPU_KERNELS:
-        launches[name] += (counted[name] + api[name] + tree[name] + sharded[name] + commit[name]
-                           + mined[name] + served[name] + durable[name] + ingested[name])
+        launches[name] += (counted[name] + api[name] + tree[name] + sharded[name] + multi[name]
+                           + onto[name] + programs[name] + commit[name] + mined[name]
+                           + served[name] + durable[name] + ingested[name])
 
     kernels_line = []
     for name, (source, replaces) in TPU_KERNELS.items():
@@ -4426,11 +5115,8 @@ def main(argv=None) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
-    emit({"elapsed_s": time.perf_counter() - t_start})
     emit({"kernels": kernels_line})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
-    return 0
+    return done()
 
 
 if __name__ == "__main__":

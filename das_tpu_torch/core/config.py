@@ -45,11 +45,14 @@ defaults: `coalesce_max_batch`, `pipeline_depth`, `pipeline_depth_max`,
 `coalesce_queue_max`, `query_deadline_ms`, `breaker_failure_threshold`,
 `breaker_cooldown_ms`.  The switches `das_tpu` reads from its environment
 are not fields: the fault plan and the trace recorder are process-wide
-and set only by `fault.configure(spec)` (DAS_TPU_FAULT) and
-`obs.configure(enabled=, capacity=)` (DAS_TPU_TRACE, DAS_TPU_TRACE_RING);
+and set only by `fault.configure(spec)` (DAS_TPU_FAULT),
+`obs.configure(enabled=, capacity=, annotations=)` (DAS_TPU_TRACE,
+DAS_TPU_TRACE_RING, DAS_TPU_TRACE_JAX) and `proflog.configure(enabled=)`
+(DAS_TPU_PROFLOG);
 the metrics port is `transport.serve(metrics_port=)`
 (DAS_TPU_METRICS_PORT); query RPCs are always coalesced
-(DAS_TPU_COALESCE)."""
+(DAS_TPU_COALESCE).  `profiler_trace_dir` (DAS_TPU_TRACE_DIR) is where a
+service writes its torch.profiler trace (obs/torchprof.py)."""
 
 from __future__ import annotations
 
@@ -111,3 +114,9 @@ class DasConfig:
     breaker_failure_threshold: int = 8
     # how long an open breaker waits before one half-open probe
     breaker_cooldown_ms: int = 250
+
+    # -- observability -----------------------------------------------------
+    # directory of the torch.profiler Chrome traces that
+    # obs/torchprof.py maybe_start_trace / maybe_stop_trace write (the
+    # service starts one with its config); None = no profiler trace
+    profiler_trace_dir: Optional[str] = None

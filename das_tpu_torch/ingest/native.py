@@ -27,12 +27,14 @@ import struct
 import subprocess
 import sys
 import threading
+import time
 from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
 
 from das_tpu_torch.ingest.canonical import CanonicalParseError
+from das_tpu_torch.obs import proflog
 from das_tpu_torch.storage.atom_table import AtomSpaceData
 
 _REPO_ROOT = Path(__file__).resolve().parents[2]
@@ -69,11 +71,17 @@ def _fail(msg: str) -> None:
     raise NativeBuildError(msg)
 
 
+def library_path() -> Path:
+    """Where the scanner library of these sources and flags is (or will
+    be) built."""
+    return BUILD_DIR / f"libdas_native_{_digest()}.so"
+
+
 def build() -> Path:
     """Compile the scanner library if no build of these sources and flags
     exists yet; returns its path.  Concurrent builds serialize on a lock
     file in the build directory."""
-    so = BUILD_DIR / f"libdas_native_{_digest()}.so"
+    so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -123,11 +131,15 @@ def get_lib() -> ctypes.CDLL:
     with _LOCK:
         if _lib is not None:
             return _lib
+        t0 = time.perf_counter()
+        fresh = not library_path().exists()
         path = build()
         try:
             lib = ctypes.CDLL(str(path))
         except OSError as exc:
             _fail(f"das_tpu_torch native scanner: cannot load {path}: {exc}")
+        # the program ledger's cold start: a fresh build or a load
+        proflog.record_build("scanner_build", path.name, time.perf_counter() - t0, fresh)
         lib.das_parse_files.restype = ctypes.c_void_p
         lib.das_parse_files.argtypes = [
             ctypes.POINTER(ctypes.c_char_p),

@@ -6,9 +6,10 @@ prices — and therefore orders and seeds — every plan exactly as the JAX
 package does.  Nothing in the port routes on it: a CUDA tensor always goes
 to the hand-written kernel.  The planner (planner/cost.py) prices each
 join or multiway step by the stage's resident and streamed bytes, with a
-penalty when the model says the stage would fall off the kernel routes;
-these two stage models are the only ones it reads, so the probe, index-join
-and anti-join models of the JAX module are not copied.
+penalty when the model says the stage would fall off the kernel routes.
+The program ledger reads every stage model, the probe, index-join and
+anti-join ones too (query/fused.py `program_model_bytes`): the modeled
+bytes of a call beside what the card allocated for it.
 
 Differences from the JAX module: the budget is the fixed pricing constant
 `DEFAULT_VMEM_BUDGET` (no environment override), and the interpreter's
@@ -89,6 +90,24 @@ def _plan(resident: int, per_row: int, capacity: int) -> StagePlan:
     return StagePlan(ROUTE_TILED, chunk, resident, per_row * chunk)
 
 
+def probe_plan(n_keys: int, n_rows: int, arity: int, k_out: int,
+               capacity: int) -> StagePlan:
+    """Probe: the sorted posting keys, the permutation and the target
+    table resident with the capacity window (single), or the window alone
+    streamed per grid step (tiled)."""
+    capacity = max(int(capacity), 0)
+    per_row = 4 * arity + 4 * k_out + 12
+    budget = DEFAULT_VMEM_BUDGET
+    resident_single = 12 * int(n_keys) + 4 * int(n_rows) * arity
+    single = resident_single + per_row * capacity
+    if single <= budget:
+        return StagePlan(ROUTE_SINGLE, 0, resident_single, single - resident_single)
+    chunk = chunk_rows_for(per_row, capacity, budget)
+    if per_row * chunk > budget or -(-capacity // max(chunk, 1)) > MAX_GRID_STEPS:
+        return StagePlan(ROUTE_LOWERED, 0, 0, per_row * chunk)
+    return StagePlan(ROUTE_TILED, chunk, 0, per_row * chunk)
+
+
 def join_plan(n_left: int, k_left: int, n_right: int, k_right: int,
               n_pairs: int, k_out: int, capacity: int) -> StagePlan:
     """Sort-merge join: both tables and the sort/offset vectors resident;
@@ -98,6 +117,16 @@ def join_plan(n_left: int, k_left: int, n_right: int, k_right: int,
         + int(n_right) * (4 * k_right + 24)
     )
     per_row = 4 * k_out + 4 * k_left + 4 * k_right + 16
+    return _plan(resident, per_row, capacity)
+
+
+def index_join_plan(n_left: int, k_left: int, n_keys: int, n_rows: int, arity: int,
+                    k_out: int, capacity: int) -> StagePlan:
+    """Index join: the left table and its probe and offset vectors
+    resident (the posting index is searched, never held); the output
+    window tiles."""
+    resident = int(n_left) * (4 * k_left + 28)
+    per_row = 4 * k_out + 4 * arity + 16
     return _plan(resident, per_row, capacity)
 
 
@@ -113,3 +142,10 @@ def multiway_plan(n_left: int, k_left: int, tails, k_out: int,
         resident += rows * (4 * width + 24)
     per_row = 4 * k_out + sum(4 * w for _r, w in tails) + 24
     return _plan(resident, per_row, capacity)
+
+
+def anti_join_plan(n_left: int, k_left: int, n_right: int, k_right: int) -> StagePlan:
+    """Anti join: both key columns resident; one bool out per left row, so
+    single-block or lowered, never tiled."""
+    resident = int(n_left) * (4 * k_left + 20) + int(n_right) * (4 * k_right + 20)
+    return _plan(resident, 0, 0)

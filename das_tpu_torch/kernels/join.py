@@ -39,9 +39,10 @@ def join_tables(left_vals, left_valid, right_vals, right_valid,
     exact, even past capacity.  The C entry picks its regime from the
     shapes (csrc/join_tables.cu: `block`, one launch of one block, or
     `global`, the grouping engine's grid passes)."""
+    t0 = launch.mark()
     if not launch.is_cuda(left_vals):
-        return join_tables_plain(left_vals, left_valid, right_vals, right_valid,
-                                 pairs, right_extra, capacity)
+        return launch.noted("join_tables", t0, False, right_vals.shape, join_tables_plain(
+            left_vals, left_valid, right_vals, right_valid, pairs, right_extra, capacity))
     dev = left_vals.device
     _check_table(left_vals, left_valid, "left", dev)
     _check_table(right_vals, right_valid, "right", dev)
@@ -60,7 +61,7 @@ def join_tables(left_vals, left_valid, right_vals, right_valid,
             ov.data_ptr(), tot.data_ptr(), n_launched, regime, launch.stream_of(dev))
     launch.raise_on(err, "join_tables")
     launch.count_call("join_tables", regime, n_launched)
-    return out, ov, tot
+    return launch.noted("join_tables", t0, True, right_vals.shape, (out, ov, tot))
 
 
 def index_join(left_vals, left_valid, keys_sorted, perm, targets, type_key: int,
@@ -72,9 +73,11 @@ def index_join(left_vals, left_valid, keys_sorted, perm, targets, type_key: int,
     picks its regime from n_left and capacity (csrc/index_join.cu:
     `block`, one launch of one block, or `global`, a bounds grid, the
     device-wide scan and an expand grid)."""
+    t0 = launch.mark()
     if not launch.is_cuda(left_vals):
-        return index_join_plain(left_vals, left_valid, keys_sorted, perm, targets,
-                                type_key, pairs, right_var_cols, right_extra, capacity)
+        return launch.noted("index_join", t0, False, left_vals.shape, index_join_plain(
+            left_vals, left_valid, keys_sorted, perm, targets, type_key, pairs,
+            right_var_cols, right_extra, capacity))
     dev = left_vals.device
     _check_table(left_vals, left_valid, "left", dev)
     launch.check(keys_sorted, "keys_sorted", torch.int64, 1, dev)
@@ -99,7 +102,7 @@ def index_join(left_vals, left_valid, keys_sorted, perm, targets, type_key: int,
             regime, launch.stream_of(dev))
     launch.raise_on(err, "index_join")
     launch.count_call("index_join", regime, n_launched)
-    return out, ov, tot
+    return launch.noted("index_join", t0, True, left_vals.shape, (out, ov, tot))
 
 
 @functools.lru_cache(maxsize=1024)
@@ -137,8 +140,10 @@ def anti_join(left_vals, left_valid, right_vals, right_valid, pairs):
     join key occurs among the valid right rows cleared (bool [L]).  The C
     entry picks its regime from n_right (csrc/anti_join.cu: `shared`, a set
     in each block's shared memory, or `global`, a set in device memory)."""
+    t0 = launch.mark()
     if not launch.is_cuda(left_vals):
-        return anti_join_plain(left_vals, left_valid, right_vals, right_valid, pairs)
+        return launch.noted("anti_join", t0, False, right_vals.shape, anti_join_plain(
+            left_vals, left_valid, right_vals, right_valid, pairs))
     dev = left_vals.device
     _check_table(left_vals, left_valid, "left", dev)
     _check_table(right_vals, right_valid, "right", dev)
@@ -155,4 +160,4 @@ def anti_join(left_vals, left_valid, right_vals, right_valid, pairs):
             launch.ptr(table), keep.data_ptr(), n_launched, regime, launch.stream_of(dev))
     launch.raise_on(err, "anti_join")
     launch.count_call("anti_join", regime, n_launched)
-    return keep
+    return launch.noted("anti_join", t0, True, right_vals.shape, keep)

@@ -13,7 +13,14 @@ PyTorch version, taken for CPU tensors, does not count).  A wrapper whose
 kernel has regimes (a design its C entry picks from the shapes alone) also
 adds one to `REGIME_COUNTS[(kernel, regime)]`, and keeps in
 `DEVICE_LAUNCHES[kernel]` and `LAST_REGIME[kernel]` how many CUDA kernels
-its last call launched and in which regime (the C entry reports both)."""
+its last call launched and in which regime (the C entry reports both).
+
+Every wrapper also notes each call in the program ledger
+(obs/proflog.py) through `mark` and `noted`: kind "cuda" where it launched
+its kernel, "plain" where it ran the plain version, with the wrapper's
+host time; both cost one attribute read while the ledger is off.  The
+library's build is the ledger's cold start: a fresh `nvcc` build, or a
+load of the library an earlier process built."""
 
 from __future__ import annotations
 
@@ -25,10 +32,13 @@ import math
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+
+from das_tpu_torch.obs import proflog
 
 CSRC = Path(__file__).with_name("csrc")
 #: most columns of a table and most var_cols / fixed positions / eq pairs of
@@ -130,11 +140,16 @@ def nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def library_path() -> Path:
+    """Where the library of these sources and flags is (or will be) built."""
+    return BUILD_DIR / f"libdas_kernels_{_digest()}.so"
+
+
 def build() -> Path:
     """Compile every source in parallel and link the shared library;
     returns its path.  The compiler's `-Xptxas -v` report (registers,
     shared memory, spills per kernel) is kept beside it as `.ptxas.txt`."""
-    so = BUILD_DIR / f"libdas_kernels_{_digest()}.so"
+    so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -172,11 +187,16 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built at first use."""
+    """The loaded kernel library, built at first use (noted in the program
+    ledger as a fresh build or a load of a built library)."""
     global _LIB
     with _LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
+            t0 = time.perf_counter()
+            fresh = not library_path().exists()
+            path = build()
+            lib = ctypes.CDLL(str(path))
+            proflog.record_build("kernel_build", path.name, time.perf_counter() - t0, fresh)
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
@@ -190,6 +210,17 @@ def ptxas_report() -> str:
 
 
 # -- wrapper helpers ------------------------------------------------------------
+
+
+def mark() -> float:
+    """The start of a wrapper call for `noted` (0.0 with the ledger off)."""
+    return proflog.launch_mark()
+
+
+def noted(kernel: str, t0: float, cuda: bool, shape, result):
+    """Note one wrapper call in the program ledger and return `result`."""
+    proflog.record_launch("kernel", kernel, shape, t0, cuda)
+    return result
 
 
 def is_cuda(t: torch.Tensor) -> bool:

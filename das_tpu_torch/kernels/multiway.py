@@ -32,8 +32,10 @@ def multiway_join(left_vals, left_valid, tails, vcol0: int, tail_meta, capacity:
     (v column, extra columns)`.  Returns (out_vals[capacity, k_out] int32,
     out_valid bool, totals[T] int64) — totals[t] the exact size of the
     t-th would-be binary intermediate."""
+    t0 = launch.mark()
     if not launch.is_cuda(left_vals):
-        return multiway_join_plain(left_vals, left_valid, tails, vcol0, tail_meta, capacity)
+        return launch.noted("multiway", t0, False, left_vals.shape, multiway_join_plain(
+            left_vals, left_valid, tails, vcol0, tail_meta, capacity))
     dev = left_vals.device
     n_tails = len(tails)
     if n_tails < 1 or len(tail_meta) != n_tails:
@@ -64,7 +66,7 @@ def multiway_join(left_vals, left_valid, tails, vcol0: int, tail_meta, capacity:
                                tot.data_ptr(), n_launched, regime, launch.stream_of(dev))
     launch.raise_on(err, "multiway_join")
     launch.count_call("multiway", regime, n_launched)
-    return out, ov, tot
+    return launch.noted("multiway", t0, True, left_vals.shape, (out, ov, tot))
 
 
 @functools.lru_cache(maxsize=1024)

@@ -113,8 +113,9 @@ def probe_term_tables(terms: Sequence[ProbeTerm]) -> List[Tuple]:
     views of one allocation."""
     if not terms:
         return []
+    t0 = launch.mark()
     if not launch.is_cuda(terms[0].sorted_keys):
-        return probe_term_tables_plain(terms)
+        return launch.noted("probe", t0, False, (len(terms),), probe_term_tables_plain(terms))
     dev = terms[0].sorted_keys.device
     for t in terms:
         _check_term(t, dev)
@@ -135,7 +136,8 @@ def probe_term_tables(terms: Sequence[ProbeTerm]) -> List[Tuple]:
                                   launch.stream_of(dev))
     launch.raise_on(err, "probe")
     launch.count_call("probe", regime, n_launched)
-    return list(zip(outs[0::3], outs[1::3], outs[2::3]))
+    return launch.noted("probe", t0, True, (len(terms),),
+                        list(zip(outs[0::3], outs[1::3], outs[2::3])))
 
 
 def probe_term_table(sorted_keys, perm, targets, probe_key: int,

@@ -215,6 +215,66 @@ def build_bio_atomspace(
     return data, genes, processes
 
 
+
+def build_bio_ontology_atomspace(
+    n_genes: int = 1000,
+    n_processes: int = 200,
+    members_per_gene: int = 5,
+    n_interactions: int = 2000,
+    n_reactomes: int = 100,
+    n_uniprots: int = 300,
+    seed: int = 42,
+):
+    """The bio atomspace plus the ontology and annotation layers of the
+    reference benchmark's three query layouts (its scripts/benchmark.py):
+
+    * an ``Inheritance`` tree over the BiologicalProcess nodes (QUERY_2's
+      inherited-process disjunct);
+    * ``Reactome`` / ``Uniprot`` nodes, ``Member`` uniprot -> reactome and
+      uniprot -> process;
+    * named ``Concept`` pathways (every 10th contains the "CoA" substring
+      QUERY_3 searches for) wired ``List(reactome, concept)``.
+
+    The same records, in the same order, as das_tpu's generator of this
+    name.  Returns (data, genes, processes)."""
+    rng = random.Random(seed + 1)
+    data, genes, processes = build_bio_atomspace(
+        n_genes=n_genes,
+        n_processes=n_processes,
+        members_per_gene=members_per_gene,
+        n_interactions=n_interactions,
+        seed=seed,
+    )
+    for type_name in ("Reactome", "Uniprot", "Concept"):
+        _add_type(data, type_name)
+    t = data.table
+    proc_ct = t.get_named_type_hash("BiologicalProcess")
+    reac_ct = t.get_named_type_hash("Reactome")
+    uni_ct = t.get_named_type_hash("Uniprot")
+    con_ct = t.get_named_type_hash("Concept")
+
+    # process ontology tree: each process inherits from one of the first
+    # n/10 "root" processes
+    n_roots = max(1, n_processes // 10)
+    for i in range(n_roots, n_processes):
+        parent = rng.randrange(n_roots)
+        _add_link(data, "Inheritance", [processes[i], processes[parent]], [proc_ct, proc_ct])
+
+    reactomes = [_add_node(data, "Reactome", f"R-HSA-{i:06d}") for i in range(n_reactomes)]
+    concepts = [
+        _add_node(data, "Concept", f"pathway {i:05d}" + (" CoA metabolism" if i % 10 == 0 else ""))
+        for i in range(n_reactomes)
+    ]
+    for r, c in zip(reactomes, concepts):
+        _add_link(data, "List", [r, c], [reac_ct, con_ct])
+
+    uniprots = [_add_node(data, "Uniprot", f"P{i:05d}") for i in range(n_uniprots)]
+    for u in uniprots:
+        _add_link(data, "Member", [u, reactomes[rng.randrange(n_reactomes)]], [uni_ct, reac_ct])
+        _add_link(data, "Member", [u, processes[rng.randrange(n_processes)]], [uni_ct, proc_ct])
+
+    return data, genes, processes
+
 def write_bio_canonical(
     path: str,
     n_genes: int = 1000,

@@ -1,5 +1,5 @@
 """das_tpu_torch.obs — per-query tracing and typed metrics (port of
-`das_tpu/obs/`, without the XLA program ledger and profiler hooks).
+`das_tpu/obs/`).
 
 A trace id born at coalescer submit threads through drain, group, plan,
 dispatch, settle fetch, materialize or cache hit, and answer delivery;
@@ -7,9 +7,11 @@ each stage records a host-monotonic span into a bounded ring
 (obs/recorder.py), while obs/metrics.py keeps counters and log-bucket
 latency histograms.  obs/export.py renders the ring as Chrome trace JSON
 and the metrics as Prometheus text (service/server.py `metrics_text`).
+obs/torchprof.py adds `torch.profiler` scopes and traces, obs/proflog.py
+the program ledger (its own switch, `proflog.configure(enabled=)`).
 
-Off by default.  Only `configure(enabled=, capacity=)` switches it; no
-environment variable is read.  Off, `span()` returns one shared no-op
+Off by default.  Only `configure(enabled=, capacity=, annotations=)`
+switches it; no environment variable is read.  Off, `span()` returns one shared no-op
 context, `event()` and `mark()` return at once and `new_trace()` returns 0.
 Names are a closed set (obs/registry.py).
 """
@@ -36,6 +38,12 @@ from das_tpu_torch.obs.registry import (  # noqa: F401
     HISTOGRAM_NAMES,
     SPAN_NAMES,
 )
+from das_tpu_torch.obs import torchprof as torchprof  # noqa: E402
+from das_tpu_torch.obs.torchprof import (  # noqa: F401
+    annotation,
+    maybe_start_trace,
+    maybe_stop_trace,
+)
 
 #: the process recorder, off until configured
 REC = TraceRecorder()
@@ -48,8 +56,12 @@ def enabled() -> bool:
 
 
 def configure(enabled: Optional[bool] = None,
-              capacity: Optional[int] = None) -> None:
+              capacity: Optional[int] = None,
+              annotations: Optional[bool] = None) -> None:
+    """Switch the recorder (`enabled`, ring `capacity`) and the
+    torch.profiler scopes (`annotations`, obs/torchprof.py); process-wide."""
     REC.configure(enabled=enabled, capacity=capacity)
+    torchprof.configure(annotations=annotations)
 
 
 def reset() -> None:
@@ -90,3 +102,6 @@ def mark() -> Optional[Tuple[int, float]]:
 
 def events():
     return REC.events()
+
+
+from das_tpu_torch.obs import proflog as proflog  # noqa: F401, E402

@@ -1,6 +1,6 @@
 """The declared span, counter and histogram names of the trace and metric
-layer (port of `das_tpu/obs/registry.py`, without the XLA program
-ledger's `prof.*` names).
+layer (port of `das_tpu/obs/registry.py`; the `prof.*` names are the
+program ledger's, obs/proflog.py).
 
 Every name passed to `obs.span` / `obs.event`, `obs.counter` or
 `obs.histogram` anywhere in `das_tpu_torch/` is a member of one of these
@@ -60,6 +60,10 @@ SPAN_NAMES = (
     #: instant: one injected fault fired at a FAULT_SITES seam
     #: (fault maybe_fail)
     "fault.inject",
+    #: span: one program's first call recorded by the program ledger
+    #: (obs/proflog.py), in a "compile" lane of its own; attrs: site,
+    #: digest, persistent_cache_hit
+    "prof.compile",
     #: span: one atomic generational snapshot write (storage/durable.py
     #: write_snapshot); attrs: generation, delta_version
     "dur.snapshot",
@@ -96,6 +100,8 @@ COUNTER_NAMES = (
     #: RetryPolicy)
     "fault.injected",
     "fault.retries",
+    #: programs first called, as recorded by the program ledger
+    "prof.compiles",
     #: snapshot generations written, WAL records appended and fsynced,
     #: WAL records replayed by restore() (storage/durable.py)
     "dur.snapshots",
@@ -116,6 +122,8 @@ HISTOGRAM_NAMES = (
     "serve.answer_ms",
     #: one settle round's host fetch
     "exec.settle_fetch_ms",
+    #: wall time of one program's first call (obs/proflog.py)
+    "prof.compile_ms",
     #: wall time of one restore (storage/durable.py restore)
     "dur.restore_ms",
 )

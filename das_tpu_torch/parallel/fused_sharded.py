@@ -30,17 +30,26 @@ same data movement between steps:
 Capacities are per shard, learned per plan signature and grown on
 overflow, as in query/fused.py; an exchange slot count (the slots each
 shard sends each destination) grows with its worst occupancy.  Every
-kernel call is shard-local: one launch per slab per step."""
+kernel call is shard-local: one launch per slab per step.
+
+On a mesh that spans processes (parallel/mesh.py) each process runs the
+same plan over its own slabs, and the collectives cross the processes;
+every decision reads replicated values only (the host records, S, the
+reduced stats vector), so every rank makes the same calls.  Only
+count-only jobs run there: materializing answers and whole-tree jobs
+raise NotImplementedError."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from das_tpu_torch import kernels, obs
+from das_tpu_torch.obs import proflog
 from das_tpu_torch.ops.join import SENTINEL_L, SENTINEL_R, dedup_table, mix_columns
 from das_tpu_torch.ops.posting import search
 from das_tpu_torch.parallel import mesh as M
@@ -64,9 +73,11 @@ from das_tpu_torch.query.fused import (
     multiway_meta,
     order_plans,
     prepare_tree_job,
+    program_model_bytes,
     run_tree_job,
     same_positive_order,
     settle_pending_iter,
+    tree_model_bytes,
 )
 
 #: a right table whose whole capacity (S x per-shard cap) fits here is
@@ -117,7 +128,7 @@ def _repartition(vals, valid, cols, sentinel: int, mesh: M.Mesh, q: int):
     shard d receives sender s's slot `slot` at row s*q + slot."""
     S = mesh.size
     bufs, occs = [], []
-    for s in range(S):
+    for s in range(mesh.n_local):
         v, m = vals[s], valid[s]
         k = v.shape[1]
         dev = v.device
@@ -165,9 +176,9 @@ def _global_count(valid, mesh: M.Mesh) -> torch.Tensor:
 
 
 def _per_shard(mesh: M.Mesh, fn):
-    """fn(s) for every shard, each under its slab's device."""
+    """fn(s) for every local slab s, each under its slab's device."""
     out = []
-    for s in range(mesh.size):
+    for s in range(mesh.n_local):
         with mesh.on_shard(s):
             out.append(fn(s))
     return out
@@ -210,7 +221,7 @@ def run_sharded_conj(sig: ShardedPlanSig, mesh: M.Mesh, bucket_arrays, keys, fix
             ks = bucket_arrays[i][0]
             pos_count[i] = M.psum([search(ks[s], (tid + 1) << 32, "left")
                                    - search(ks[s], tid << 32, "left")
-                                   for s in range(mesh.size)], mesh)
+                                   for s in range(mesh.n_local)], mesh)
             tables[i] = None
             term_ranges.append(zero)
             continue
@@ -332,7 +343,7 @@ def build_sharded_tree_fused(sig: ShardedTreeSig, mesh: M.Mesh):
             "tree fusion requires one shared variable universe"
         )
         perms.append(tuple(names.index(v) for v in out_names))
-    S = mesh.size
+    L = mesh.n_local
 
     def fn(*site_inputs):
         blocks = []
@@ -342,8 +353,8 @@ def build_sharded_tree_fused(sig: ShardedTreeSig, mesh: M.Mesh):
             v, m, sl = run_sharded_conj(ssig, mesh, ba, ks, fv)
             blocks.append(sl)
             parts.append(([_take_cols(x, perms[i]) for x in v], m))
-        union_vals = [torch.cat([p[0][s] for p in parts], dim=0) for s in range(S)]
-        union_valid = [torch.cat([p[1][s] for p in parts], dim=0) for s in range(S)]
+        union_vals = [torch.cat([p[0][s] for p in parts], dim=0) for s in range(L)]
+        union_valid = [torch.cat([p[1][s] for p in parts], dim=0) for s in range(L)]
         if sig.neg is not None:
             ba, ks, fv = site_inputs[len(sig.sites)]
             nv, nm, nsl = run_sharded_conj(sig.neg, mesh, ba, ks, fv)
@@ -430,6 +441,8 @@ class ShardedFusedExecutor:
         then answers)."""
         from das_tpu_torch import planner as _planner
 
+        if not count_only:
+            self.mesh.require_one_process("materializing answers")
         planned = (_planner.plan_conjunction(self.db, plans, n_shards=self.n_shards)
                    if _planner.enabled(self.db.config) else None)
         mw = planned.multiway if planned is not None else 0
@@ -546,6 +559,7 @@ class ShardedFusedExecutor:
     def tree_exec_job(self, pos_sites, neg_plans=None):
         """One whole-tree mesh job (query/fused.py prepare_tree_job with the
         sharded job class)."""
+        self.mesh.require_one_process("the whole-tree job")
         return prepare_tree_job(self, pos_sites, neg_plans, _ShardedTreeExecJob)
 
     def execute_tree(self, pos_sites, neg_plans=None):
@@ -606,9 +620,14 @@ class _ShardedExecJob:
                 est_join_rows=(list(self.planned.est_join_rows)
                                if self.planned is not None else None),
             )
-        with sp:
-            vals, valid, stats = run_sharded_conj(self.plan_sig(), self.ex.mesh, self.arrays,
-                                                  self.keys, self.fvals)
+        sig = self.plan_sig()
+        run = run_sharded_conj
+        if proflog.enabled():
+            run = proflog.instrument("sharded", proflog.sig_digest(sig, self.count_only),
+                                     run_sharded_conj,
+                                     model_bytes=partial(program_model_bytes, sig, self.arrays))
+        with sp, obs.annotation("exec.dispatch"):
+            vals, valid, stats = run(sig, self.ex.mesh, self.arrays, self.keys, self.fvals)
         return (stats,) if self.count_only else (stats, *vals, *valid)
 
     def settle(self, host_out, dev_out) -> bool:
@@ -618,7 +637,7 @@ class _ShardedExecJob:
         from das_tpu_torch.planner import observe_settle
         from das_tpu_torch.query.compiler import ROUTE_COUNTS
 
-        S = self.ex.n_shards
+        S = self.ex.mesh.n_local
         stats = host_out[0]
         if self.count_only:
             vals = valid = host_vals = host_valid = None
@@ -675,7 +694,9 @@ class _ShardedTreeExecJob(_TreeExecJob):
         )
 
     def _build(self, tree_sig):
-        return build_sharded_tree_fused(tree_sig, self.ex.mesh)
+        fn, names = build_sharded_tree_fused(tree_sig, self.ex.mesh)
+        return proflog.instrument("sharded_tree", proflog.sig_digest(tree_sig, False), fn,
+                                  model_bytes=partial(tree_model_bytes, tree_sig)), names
 
     def _flatten(self, out):
         vals, valid, stats = out
@@ -684,7 +705,7 @@ class _ShardedTreeExecJob(_TreeExecJob):
     def _unpack(self, flat, host: bool):
         """Per-shard lists on the device, stacked [S, ...] arrays on the
         host."""
-        S = self.ex.n_shards
+        S = self.ex.mesh.n_local
         vals, valid, stats = list(flat[:S]), list(flat[S:2 * S]), flat[2 * S]
         if host:
             return np.stack(vals), np.stack(valid), stats

@@ -4,8 +4,12 @@ The counterpart of the reference's Redis-cluster hash-slot sharding
 (SURVEY.md §2.10): every link bucket's rows are dealt round-robin over
 the mesh (row j of a bucket goes to slab j % S), and each slab holds its
 own columns plus slab-local sorted probe indexes, capacity-padded to one
-`m_local` for all slabs.  Slab s lives on `mesh.devices[s]`
-(parallel/mesh.py); several slabs may share a device.
+`m_local` for all slabs.  Local slab s lives on `mesh.devices[s]`
+(parallel/mesh.py); several slabs may share a device.  A mesh may span
+processes: each process deals the whole partition on the host and holds
+its own slabs, and then only counts run (`get_sharded_executor(db)
+.execute(plans, count_only=True)`); materializing answers, commits,
+snapshots and trees raise NotImplementedError.
 
 Conjunctions run on the fused sharded executor (parallel/fused_sharded.py);
 what it declines replays on the staged pipeline here (`sharded_execute`):
@@ -103,7 +107,8 @@ class ShardedBucket:
         return out
 
     def nbytes_per_slab(self) -> List[int]:
-        per = [0] * self.n_shards
+        """Bytes of each of this process's slabs."""
+        per = [0] * len(self.type_id)
         for name, _ in SLAB_FIELDS:
             for s, t in enumerate(getattr(self, name)):
                 per[s] += t.numel() * t.element_size()
@@ -116,8 +121,9 @@ class ShardedBucket:
 
 def bucket_from_host(arity: int, m_local: int, size: int, slab_sizes: np.ndarray,
                      arrays: Dict[str, np.ndarray], mesh: M.Mesh) -> ShardedBucket:
-    """Upload a bucket's stacked host arrays (`ShardedBucket.host` layout),
-    slab s onto mesh.devices[s]."""
+    """Upload this process's slabs of a bucket's stacked host arrays
+    (`ShardedBucket.host` layout, one [m_local, ...] entry per global
+    shard), each onto its slab's device."""
     fields = {name: M.shard_put(arrays[name], mesh) for name, _ in SLAB_FIELDS}
     for name, _ in SLAB_POS_FIELDS:
         fields[name] = [M.shard_put(arrays[f"{name}{p}"], mesh) for p in range(arity)]
@@ -127,7 +133,9 @@ def bucket_from_host(arity: int, m_local: int, size: int, slab_sizes: np.ndarray
 
 def _build_sharded_bucket(b, mesh: M.Mesh) -> ShardedBucket:
     """Deal one finalized LinkBucket round-robin over the mesh and build the
-    slab-local stable-argsort probe indexes."""
+    slab-local stable-argsort probe indexes.  Every process deals the whole
+    partition on the host (the host records are replicated) and uploads
+    its own slabs."""
     S = mesh.size
     arity, m = b.arity, b.size
     m_local = capacity_class(max(1, -(-m // S)))
@@ -201,7 +209,7 @@ class ShardedTables:
         return self
 
     def nbytes_per_slab(self) -> List[int]:
-        per = [0] * self.n_shards
+        per = [0] * self.mesh.n_local
         for b in self.buckets.values():
             for s, n in enumerate(b.nbytes_per_slab()):
                 per[s] += n
@@ -212,10 +220,12 @@ class ShardedTables:
         (swap, became_base, slots): the merged bucket becomes visible only
         when `swap` runs (storage/delta.py _apply_delta), so a failure while
         staging, SlabCapacityExhausted included, leaves `buckets` as it was.
+        One process only (`Mesh.require_one_process`).
 
         Delta row j goes to slab (size + j) % S, continuing the round-robin,
         into positions slab_sizes[s].. of its slack; each slab-local sorted
         index merges its slab's sorted delta in O(m_local)."""
+        self.mesh.require_one_process("a commit")
         arity, d = delta.arity, delta.size
         base = self.buckets.get(arity)
         if base is None or base.size == 0:
@@ -347,6 +357,7 @@ class ShardedDB(IncrementalCommitMixin, MemoryDB):
         action = self._plan_refresh()
         if action == NOOP:
             return
+        self.mesh.require_one_process("a commit")
         if action == FULL:
             wal = self._wal
             if wal is not None:
@@ -406,7 +417,7 @@ class ShardedDB(IncrementalCommitMixin, MemoryDB):
         cap = min(self.config.initial_result_capacity, max(sb.m_local, 16))
         while True:
             vals, mask, rngs = [], [], []
-            for s in range(mesh.size):
+            for s in range(mesh.n_local):
                 with mesh.on_shard(s):
                     v, m, r = kernels.probe_term_table(
                         key_sorted[s], perm[s], sb.targets[s], int(probe_key), fvals, cap,
@@ -439,7 +450,7 @@ class ShardedDB(IncrementalCommitMixin, MemoryDB):
         cap = max(64, min(left.count * right.count, self.config.initial_result_capacity))
         while True:
             vals, valid, totals = [], [], []
-            for s in range(mesh.size):
+            for s in range(mesh.n_local):
                 with mesh.on_shard(s):
                     v, m, t = kernels.join_tables(left.vals[s], left.valid[s], rv_full[s],
                                                   rm_full[s], pairs, extra, cap)
@@ -464,7 +475,7 @@ class ShardedDB(IncrementalCommitMixin, MemoryDB):
         rv_full = M.all_gather(tabu.vals, mesh)
         rm_full = M.all_gather(tabu.valid, mesh)
         valid = []
-        for s in range(mesh.size):
+        for s in range(mesh.n_local):
             with mesh.on_shard(s):
                 valid.append(kernels.anti_join(left.vals[s], left.valid[s], rv_full[s],
                                                rm_full[s], pairs))
@@ -499,7 +510,9 @@ class ShardedDB(IncrementalCommitMixin, MemoryDB):
 
     def materialize(self, table: Optional[ShardedTable], answer: PatternMatchingAnswer) -> bool:
         """The table's valid rows as reference assignments (the host set
-        removes duplicates across shards)."""
+        removes duplicates across shards).  One process only: the other
+        processes hold the other rows."""
+        self.mesh.require_one_process("materializing answers")
         if table is None or table.count == 0:
             return False
         if table.host_vals is not None:
@@ -565,6 +578,7 @@ class ShardedDB(IncrementalCommitMixin, MemoryDB):
     def tree_ops(self):
         """The mesh op layer of the tree executor, rebuilt whenever `tables`
         is replaced (a re-partition)."""
+        self.mesh.require_one_process("the tree executor")
         ops = getattr(self, "_tree_ops", None)
         if ops is None or ops.tables is not self.tables:
             from das_tpu_torch.parallel.sharded_tree import ShardedTreeOps

@@ -24,7 +24,6 @@ beside the estimates."""
 
 from __future__ import annotations
 
-import hashlib
 from typing import Dict
 
 from das_tpu_torch.ops.counters import PLANNER_KEYS
@@ -181,17 +180,23 @@ def _explain_plans(db, plans, execute: bool, planned=_UNPLANNED,
         "reseed_fallback": bool(getattr(result, "reseed_needed", False)),
     }
     if compile_report:
-        out["compile"] = _compile_block(job.plan_sig())
+        out["compile"] = _compile_block(job.plan_sig(), "sharded" if sharded else "fused")
     return out
 
 
-def _compile_block(sig) -> Dict:
-    """The explain(compile=True) block.  There is no program ledger in the
-    port: the block the JAX package gives with its ledger off, keyed by the
-    same digest (the md5 of the executed signature's repr, folded to 16 hex
-    chars)."""
-    digest = hashlib.md5(repr((sig, False)).encode()).hexdigest()[:16]
-    return {"enabled": False, "digest": digest, "rows": []}
+def _compile_block(sig, site_hint: str) -> Dict:
+    """The explain(compile=True) block: the program ledger's rows
+    (obs/proflog.py) for the executed signature's digest, falling back to
+    the site's rows when the digest has none (a program first called
+    before the ledger was on); `enabled` False with no rows says why
+    nothing is there."""
+    from das_tpu_torch.obs import proflog
+
+    digest = proflog.sig_digest(sig, False)
+    rows = proflog.rows(digest=digest)
+    if not rows:
+        rows = proflog.rows(site=site_hint)
+    return {"enabled": proflog.enabled(), "digest": digest, "rows": rows}
 
 
 def _site_actual(j) -> Dict:
@@ -249,7 +254,8 @@ def _explain_tree_fused(db, fusable, execute: bool, compile_report: bool = False
             out["compile"] = None
         return out
     if compile_report:
-        out["compile"] = _compile_block(job.tree_sig())
+        out["compile"] = _compile_block(job.tree_sig(),
+                                        "sharded_tree" if sharded else "fused_tree")
     out["actual"] = {
         "count": job.result.count,
         # the mesh union dedups shard-locally (cross-shard duplicates die

@@ -51,6 +51,12 @@ counterpart of `jax.vmap`, identical lanes computed once) with one host
 fetch per retry round per group; entries the greedy order cannot decide
 re-run on the exact reference-order program.
 
+With the program ledger on (obs/proflog.py), every builder's call goes
+through `proflog.instrument`, keyed by its signature's digest, with
+`program_model_bytes` / `tree_model_bytes` (kernels/budget.py's modeled
+bytes of the call) beside what the card allocated; the dispatch and
+settle-fetch halves sit in `obs.annotation` scopes for torch.profiler.
+
 Learned capacities also go to a `CapStore` file when
 `DasConfig.cap_store_dir` is set, and `export_warm_state` /
 `apply_warm_state` carry them, the count-only cache entries and the
@@ -66,12 +72,14 @@ import threading
 import time
 from collections import OrderedDict
 from dataclasses import dataclass
+from functools import partial
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from das_tpu_torch import fault, kernels, obs
+from das_tpu_torch.obs import proflog
 from das_tpu_torch.ops.join import dedup_table
 from das_tpu_torch.ops.posting import search
 from das_tpu_torch.storage.atom_table import host_probe_locals, host_segments
@@ -190,6 +198,91 @@ def multiway_meta(join_meta, mw: int):
     )
     meta = tuple((join_meta[j][0][0][1], join_meta[j][1]) for j in range(mw - 1))
     return meta, join_meta[0][0][0][0]
+
+
+def _kernel_stage_plans(sigs, term_shapes, term_caps, join_caps, index_joins, *,
+                        n_shards: int = 1, exch_caps=None, multiway: int = 0):
+    """kernels/budget.py's byte plan of every kernel stage of one plan, as
+    `das_tpu` prices them (its `kernel_program_plan`): the probes of the
+    materialized terms, each join with the right side the kernel holds
+    (S x cap rows where the mesh gathers it, S x q on both sides of a
+    hash-partitioned join, the gathered left of an index join), the
+    multiway step and each anti join.  term_shapes[i] is (n_keys, n_rows)
+    of term i's probe index arrays (per slab on the mesh)."""
+    from das_tpu_torch.kernels import budget
+
+    positives, _negatives, _names, join_meta, anti_meta = fold_join_meta(sigs)
+    start = multiway if multiway else 1
+    index_joins = (tuple(index_joins) if index_joins
+                   else tuple([-1] * max(0, len(positives) - start)))
+    index_right = {positives[start + t]: t for t, p in enumerate(index_joins) if p >= 0}
+    plans = []
+    for i, t in enumerate(sigs):
+        if i in index_right:
+            continue  # never materialized; priced at its join below
+        n_keys, n_rows = term_shapes[i]
+        plans.append(budget.probe_plan(n_keys, n_rows, t.arity, len(t.var_cols), term_caps[i]))
+    width = len(sigs[positives[0]].var_cols) if positives else 0
+    left_rows = term_caps[positives[0]] if positives else 0
+    if multiway:
+        tails = [positives[j] for j in range(1, multiway)]
+        kpad = max(len(sigs[i].var_cols) for i in tails)
+        k_out = width + sum(len(join_meta[j][1]) for j in range(multiway - 1))
+        plans.append(budget.multiway_plan(
+            left_rows, width, tuple((n_shards * term_caps[i], kpad) for i in tails),
+            k_out, join_caps[0]))
+        width = k_out
+        left_rows = join_caps[0]
+    for t, i in enumerate(positives[start:]):
+        pairs, extra = join_meta[start - 1 + t]
+        jc = join_caps[(1 if multiway else 0) + t]
+        k_out = width + len(extra)
+        if index_joins[t] >= 0:
+            n_keys, n_rows = term_shapes[i]
+            plans.append(budget.index_join_plan(n_shards * left_rows, width, n_keys, n_rows,
+                                                sigs[i].arity, k_out, jc))
+        else:
+            q = exch_caps[(1 if multiway else 0) + t] if exch_caps else 0
+            if q:
+                l_rows, r_rows = n_shards * q, n_shards * q
+            else:
+                l_rows, r_rows = left_rows, n_shards * term_caps[i]
+            plans.append(budget.join_plan(l_rows, width, r_rows, len(sigs[i].var_cols),
+                                          len(pairs), k_out, jc))
+        width = k_out
+        left_rows = jc
+    for i, _pairs in anti_meta:
+        plans.append(budget.anti_join_plan(left_rows, width, n_shards * term_caps[i],
+                                           len(sigs[i].var_cols)))
+    return plans
+
+
+def program_model_bytes(sig, bucket_arrays, *_rest) -> int:
+    """The modeled peak kernel footprint of one plan: the largest stage's
+    resident plus streamed bytes (stages run one after another), from the
+    call's own bucket arrays (a mesh signature's arrays are per-slab lists,
+    whose slab sizes are the kernel boundary).  The program ledger divides
+    it by the bytes the card allocated.  0 for a signature with no join
+    steps to price (the exact program)."""
+    if not hasattr(sig, "index_joins"):
+        return 0
+    sharded = hasattr(sig, "exch_caps")
+    shapes = tuple(((a[0][0] if sharded else a[0]).shape[0],
+                    (a[2][0] if sharded else a[2]).shape[0]) for a in bucket_arrays)
+    plans = _kernel_stage_plans(
+        sig.terms, shapes, sig.term_caps, sig.join_caps, sig.index_joins,
+        n_shards=getattr(sig, "n_shards", 1), exch_caps=getattr(sig, "exch_caps", None),
+        multiway=getattr(sig, "multiway", 0))
+    if not plans:
+        return 0
+    return max(p.resident_bytes + p.block_bytes for p in plans)
+
+
+def tree_model_bytes(sig, *site_inputs) -> int:
+    """program_model_bytes over every site of a tree job: the largest."""
+    ssigs = sig.sites + ((sig.neg,) if sig.neg is not None else ())
+    return max((program_model_bytes(ssig, inputs[0])
+                for ssig, inputs in zip(ssigs, site_inputs)), default=0)
 
 
 def plan_index_joins(sigs: Tuple[FusedTermSig, ...], start: int = 0):
@@ -943,8 +1036,13 @@ class _ExecJob:
                 est_join_rows=(list(self.planned.est_join_rows)
                                if self.planned is not None else None),
             )
-        with sp:
-            vals, valid, stats = run_conj(self.plan_sig(), self.arrays, self.keys, self.fvals)
+        sig = self.plan_sig()
+        run = run_conj
+        if proflog.enabled():
+            run = proflog.instrument("fused", proflog.sig_digest(sig, self.count_only), run_conj,
+                                     model_bytes=partial(program_model_bytes, sig, self.arrays))
+        with sp, obs.annotation("exec.dispatch"):
+            vals, valid, stats = run(sig, self.arrays, self.keys, self.fvals)
         return (stats,) if self.count_only else (stats, vals, valid)
 
     def settle(self, host_out, dev_out) -> bool:
@@ -1063,7 +1161,8 @@ def settle_pending_iter(results_cache, pending):
     jobs, outs, staged = pending.jobs, pending.outs, pending.staged
     while jobs:
         t0 = time.perf_counter()
-        fetched = retried_fetch(staged)
+        with obs.annotation("exec.settle_fetch"):
+            fetched = retried_fetch(staged)
         fetch_s = time.perf_counter() - t0
         pending.fetch_ms.append(fetch_s * 1e3)
         if obs.enabled():
@@ -1231,7 +1330,9 @@ class _TreeExecJob:
     # -- the executor's hooks (the sharded job overrides them) --------------
 
     def _build(self, tree_sig):
-        return build_fused_tree(tree_sig)
+        fn, names = build_fused_tree(tree_sig)
+        return proflog.instrument("fused_tree", proflog.sig_digest(tree_sig, False), fn,
+                                  model_bytes=partial(tree_model_bytes, tree_sig)), names
 
     def _flatten(self, out) -> Tuple[torch.Tensor, ...]:
         """The tree function's (vals, valid, stats) as the tensors to fetch."""
@@ -1274,7 +1375,7 @@ class _TreeExecJob:
         if obs.enabled():
             obs.counter("exec.dispatches").inc()
             sp = obs.span("exec.dispatch", route=self.route, sites=len(self.site_jobs))
-        with sp:
+        with sp, obs.annotation("exec.dispatch"):
             return self._flatten(fn(*((j.arrays, j.keys, j.fvals) for j in self._all_jobs())))
 
     def settle(self, host_out, dev_out) -> bool:
@@ -1323,7 +1424,8 @@ def run_tree_job(job: _TreeExecJob) -> _TreeExecJob:
     while True:
         out = job.dispatch()
         t0 = time.perf_counter()
-        fetched = fetch(*out)
+        with obs.annotation("exec.settle_fetch"):
+            fetched = fetch(*out)
         if obs.enabled():
             fetch_s = time.perf_counter() - t0
             obs.counter("exec.fetches").inc()
@@ -1621,11 +1723,15 @@ class FusedExecutor:
         while True:
             rounds += 1
             sig = FusedExactSig(sigs, term_caps, chain_caps)
+            run = run_exact
+            if proflog.enabled():
+                run = proflog.instrument("fused_exact", proflog.sig_digest(sig, count_only),
+                                         run_exact)
             if count_only:
-                (stats,) = fetch(run_exact(sig, arrays, keys, fvals, count_only=True))
+                (stats,) = fetch(run(sig, arrays, keys, fvals, True))
                 vals = valid = host_vals = host_valid = None
             else:
-                vals, valid, stats_dev = run_exact(sig, arrays, keys, fvals)
+                vals, valid, stats_dev = run(sig, arrays, keys, fvals, False)
                 stats, host_vals, host_valid = fetch(stats_dev, vals, valid)
             new_tc = _grown(stats[3:3 + len(sigs)], term_caps)
             new_cc = _grown(stats[3 + len(sigs):], chain_caps)
@@ -1665,14 +1771,18 @@ class FusedExecutor:
 
     # -- batched counting ------------------------------------------------------
 
-    def _run_batch_group(self, run_lane, key_rows, fval_rows, n_terms, term_caps, caps):
+    def _run_batch_group(self, run_lane, key_rows, fval_rows, n_terms, term_caps, caps,
+                         make_sig, arrays):
         """Run one count group: identical lanes computed once, every lane's
         stats stacked on the device and fetched in ONE host fetch per retry
         round, capacities grown to the largest lane's overflow.  Lanes run
         one after another on one stream (the eager counterpart of the JAX
         package's vmap).  Returns (stats rows per member or None at the
         ceiling, term_caps, caps); rows follow the layout
-        [count, flag, flag, *term_ranges, *step_totals]."""
+        [count, flag, flag, *term_ranges, *step_totals].  `run_lane(term_caps,
+        caps, keys, fixed_vals, arrays)` runs one lane over the group's
+        bucket `arrays`; `make_sig(term_caps, caps)` is a round's signature,
+        the program ledger's key and byte model of a round."""
         cfg = self.db.config
         seen: Dict[Tuple, int] = {}
         back: List[int] = []
@@ -1688,8 +1798,17 @@ class FusedExecutor:
         self.batch_counts["groups"] += 1
         self.batch_counts["lanes"] += len(lanes)
         self.batch_counts["members"] += len(back)
+        def run_round(tc, cc, lanes, arrays):
+            return torch.stack([run_lane(tc, cc, kr, fr, arrays) for kr, fr in lanes])
+
         while True:
-            stacked = torch.stack([run_lane(term_caps, caps, kr, fr) for kr, fr in lanes])
+            run = run_round
+            if proflog.enabled():
+                sig = make_sig(term_caps, caps)
+                run = proflog.instrument("count_batch", proflog.sig_digest(sig, len(lanes)),
+                                         run_round,
+                                         model_bytes=partial(program_model_bytes, sig, arrays))
+            stacked = run(term_caps, caps, lanes, arrays)
             # a count round's fetch is a settle fetch: retried, each
             # attempt counted
             ((stats,),) = retried_fetch(stage_many([(stacked,)]))
@@ -1816,12 +1935,14 @@ class FusedExecutor:
             if max(term_caps, default=0) > LARGE_TERM_BATCH_LIMIT:
                 continue
 
-            def run_lane(tc, jc, kr, fr, _s=sigs, _ij=index_joins, _a=group_arrays):
-                return run_conj(FusedPlanSig(_s, tc, jc, _ij), _a, kr, fr)[2]
+            def run_lane(tc, jc, kr, fr, a, _s=sigs, _ij=index_joins):
+                return run_conj(FusedPlanSig(_s, tc, jc, _ij), a, kr, fr)[2]
 
             stats, term_caps, join_caps = self._run_batch_group(
                 run_lane, [prepared[m][3] for m in members],
                 [prepared[m][4] for m in members], len(sigs), term_caps, join_caps,
+                lambda tc, jc, _s=sigs, _ij=index_joins: FusedPlanSig(_s, tc, jc, _ij),
+                group_arrays,
             )
             if stats is None:
                 continue
@@ -1867,13 +1988,14 @@ class FusedExecutor:
             if max(chain_caps, default=0) > cfg.max_result_capacity:
                 continue
 
-            def run_lane(tc, cc, kr, fr, _s=sigs, _a=members[0][1]):
-                return run_exact(FusedExactSig(_s, tc, cc), _a, kr, fr, count_only=True)
+            def run_lane(tc, cc, kr, fr, a, _s=sigs):
+                return run_exact(FusedExactSig(_s, tc, cc), a, kr, fr, count_only=True)
 
             self.batch_counts["exact_groups"] += 1
             stats, term_caps, chain_caps = self._run_batch_group(
                 run_lane, [mm[2] for mm in members], [mm[3] for mm in members],
                 len(sigs), term_caps, chain_caps,
+                lambda tc, cc, _s=sigs: FusedExactSig(_s, tc, cc), members[0][1],
             )
             if stats is None:
                 continue

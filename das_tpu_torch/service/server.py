@@ -163,6 +163,18 @@ class DasService:
         self.device = device
         self.tenants: Dict[str, _Tenant] = {}
         self.registry_lock = threading.Lock()
+        # a torch.profiler trace over the service's life when the config
+        # names a profiler_trace_dir (obs/torchprof.py); stop_trace writes it
+        from das_tpu_torch import obs
+
+        obs.maybe_start_trace(config)
+
+    def stop_trace(self) -> bool:
+        """Stop the profiler trace the constructor started and write it
+        (False when none runs)."""
+        from das_tpu_torch import obs
+
+        return obs.maybe_stop_trace()
 
     def coalescer_stats(self) -> Dict[str, int]:
         """Aggregate serving-path observability (bench/tests): per-tenant
@@ -170,9 +182,9 @@ class DasService:
         mark, the result caches' hit/miss/invalidation counters (the
         conjunctive, tree-composite and count-batch caches all fold in),
         the process-wide route counters, the planner's counters and the
-        durability counters.  `tenants` breaks the aggregates down per
-        tenant name.  `das_tpu`'s `programs` (its XLA program ledger) has
-        no counterpart here."""
+        durability counters, and the program ledger's snapshot
+        (`programs`, obs/proflog.py).  `tenants` breaks the aggregates down
+        per tenant name."""
         out = {
             "batches": 0, "items": 0, "max_batch": 0, "max_batch_limit": 0,
             "pipeline_depth": 0, "pipeline_depth_max": 0,
@@ -268,6 +280,7 @@ class DasService:
                 per["cache_misses"] = cache["misses"]
             out["tenants"][tenant.name] = per
         from das_tpu_torch import planner
+        from das_tpu_torch.obs import proflog
         from das_tpu_torch.query.compiler import ROUTE_COUNTS
         from das_tpu_torch.storage import durable
 
@@ -275,6 +288,10 @@ class DasService:
         # planned-vs-greedy traffic, retry rounds planned jobs still paid,
         # and the summed estimated-vs-actual join rows
         out["planner"] = planner.snapshot()
+        # the program ledger: first calls and their seconds, the cold
+        # start (kernel and scanner builds), the ledger hit rate and the
+        # per-site budget-vs-actual bytes
+        out["programs"] = proflog.snapshot()
         # active snapshot generation, WAL records appended and replayed,
         # torn-tail truncations, the last restore's wall seconds
         out["durability"] = durable.snapshot_stats()
@@ -282,8 +299,9 @@ class DasService:
 
     def metrics_text(self) -> str:
         """Prometheus text of the obs metric layer plus the serving
-        gauges of coalescer_stats() and the durability gauges: one scrape
-        surface (`start_metrics_http` serves it)."""
+        gauges of coalescer_stats(), the program ledger's and the
+        durability gauges: one scrape surface (`start_metrics_http` serves
+        it)."""
         from das_tpu_torch import obs
 
         stats = self.coalescer_stats()
@@ -300,6 +318,12 @@ class DasService:
                 "cache_invalidations",
             )
         }
+        progs = stats.get("programs") or {}
+        for k in ("compiles", "compile_s", "cold_start_s", "persistent_cache_hits",
+                  "ledger_hits"):
+            gauges[f"programs.{k}"] = float(progs.get(k) or 0)
+        if progs.get("hit_rate") is not None:
+            gauges["programs.hit_rate"] = float(progs["hit_rate"])
         dur = stats.get("durability") or {}
         for k in ("generation", "snapshots", "wal_records",
                   "recovery_replayed", "torn_tail_truncations",

@@ -96,4 +96,5 @@ def serve(
     log.info(f"DAS service listening on port {bound}")
     if block:
         server.wait_for_termination()
+        service.stop_trace()
     return server, service

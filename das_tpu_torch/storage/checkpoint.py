@@ -336,9 +336,12 @@ def _sharded_payload(db) -> Dict[str, np.ndarray]:
 def save_sharded(db, path: str) -> None:
     """A checkpoint of a sharded store including its slabs: the records and
     indexes checkpoint plus one npz of the stacked slabs, so a restore
-    uploads them with no re-partition and no per-slab argsort."""
+    uploads them with no re-partition and no per-slab argsort.  One process
+    only (checked before anything is written): the other processes hold
+    the other slabs."""
     from das_tpu_torch.storage import durable
 
+    db.mesh.require_one_process("a snapshot")
     save(db.data, path)
     arrays = _sharded_payload(db)
     name = SHARDED_FILE_FMT.format(db.tables.n_shards)

@@ -526,9 +526,14 @@ def write_snapshot(db, root: str, keep: Optional[int] = None) -> str:
 
     The indexes are `data.finalize()`'s: after commits that is a fresh
     host finalize, whose row order differs from the live store's interned
-    one; the live store keeps its own `fin`."""
+    one; the live store keeps its own `fin`.  A mesh store spanning
+    processes raises before anything is written (its other slabs live in
+    other processes)."""
     from das_tpu_torch import obs
+    from das_tpu_torch.query.fused import is_sharded
 
+    if is_sharded(db):
+        db.mesh.require_one_process("a snapshot")
     cfg = getattr(db, "config", None)
     if keep is None:
         keep = int(getattr(cfg, "snapshot_keep", 2) or 2)

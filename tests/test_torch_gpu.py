@@ -895,3 +895,133 @@ def test_sharded_store_on_card_equals_tensor():
             outs.append((host[0].tolist(), job.result.host_vals, job.result.host_valid))
         assert outs[0][0] == outs[1][0]
         assert np.array_equal(outs[0][1], outs[1][1]) and np.array_equal(outs[0][2], outs[1][2])
+
+
+_MULTIHOST_WORKER = """
+import json, sys
+
+from das_tpu_torch.query.ast import And, Link, LinkTemplate, Not, Node, TypedVariable, Variable
+
+
+def queries():
+    inh = lambda a, b: Link("Inheritance", [a, b], True)  # noqa: E731
+    V = Variable
+    return [
+        And([inh(V("V1"), V("V3")), inh(V("V2"), V("V3")),
+             Not(inh(V("V1"), Node("Concept", "mammal")))]),
+        And([inh(V("V1"), V("V3")), inh(V("V2"), V("V3")), inh(V("V4"), V("V3"))]),
+        And([inh(V("V1"), V("V2")), LinkTemplate(
+            "Inheritance", [TypedVariable("V2", "Concept"), TypedVariable("V3", "Concept")],
+            True)]),
+    ]
+
+
+def stats(mesh):
+    from das_tpu_torch.core.config import DasConfig
+    from das_tpu_torch.models.animals import animals_metta
+    from das_tpu_torch.parallel.fused_sharded import get_sharded_executor
+    from das_tpu_torch.parallel.sharded_db import ShardedDB
+    from das_tpu_torch.query import compiler, fused
+    from das_tpu_torch.storage.atom_table import load_metta_text
+
+    db = ShardedDB(load_metta_text(animals_metta()), DasConfig(), mesh=mesh)
+    ex = get_sharded_executor(db)
+    ex.broadcast_limit = 0   # the template join hash-partitions
+    out = []
+    for q in queries():
+        job = ex._exec_job(compiler.plan_query(db, q), True)
+        while True:
+            dev = job.dispatch()
+            host = fused.fetch(*dev)
+            if job.settle(host, dev):
+                break
+        out.append([int(x) for x in host[0]])
+    return out
+
+
+if __name__ == "__main__":
+    from das_tpu_torch.parallel import mesh as M
+
+    M.multihost_initialize(sys.argv[1], num_processes=2, process_id=int(sys.argv[2]),
+                           timeout_s=120)
+    print("RESULT " + json.dumps(stats(M.make_mesh(4, device="cuda:0"))), flush=True)
+"""
+
+
+@pytest.mark.gpu
+def test_two_process_mesh_on_card_equals_one_process(tmp_path):
+    """Two processes of 2 slabs each on cuda:0 (gloo, staged through the
+    host) give the stats vectors of one process's 4-slab mesh on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels only run on the GPU")
+    import importlib.util
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from das_tpu_torch.parallel import mesh as M
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "worker.py"
+    script.write_text(_MULTIHOST_WORKER)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=repo)
+    procs = [subprocess.Popen([sys.executable, str(script), f"127.0.0.1:{port}", str(pid)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              env=env) for pid in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    got = []
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out
+        got.append(json.loads([ln for ln in out.splitlines() if ln.startswith("RESULT ")][-1][7:]))
+    spec = importlib.util.spec_from_file_location("multihost_worker", script)
+    worker = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(worker)
+    want = worker.stats(M.make_mesh(4, device="cuda:0"))
+    assert got[0] == got[1] == want
+    assert all(w[0] > 0 for w in want)
+
+
+@pytest.mark.gpu
+def test_ledger_measures_peak_bytes_on_card():
+    """With the ledger on, a first call on the card records the allocator's
+    peak rise and a finite budget-vs-actual ratio."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels only run on the GPU")
+    import math
+
+    from das_tpu_torch.api.atomspace import DistributedAtomSpace
+    from das_tpu_torch.models.bio import build_bio_atomspace
+    from das_tpu_torch.obs import proflog
+    from das_tpu_torch.query.ast import And, Link, Node, Variable
+
+    data, genes, _ = build_bio_atomspace(seed=5, **SMALL)
+    names = [data.nodes[h].name for h in genes]
+    das = DistributedAtomSpace(backend="tensor", data=data, device="cuda")
+    proflog.configure(enabled=True)
+    proflog.reset()
+    try:
+        q = And([Link("Member", [Node("Gene", names[0]), Variable("V3")], True),
+                 Link("Member", [Variable("V2"), Variable("V3")], True)])
+        ok, _ans = das.query_answer(q)
+        assert ok
+        rows = [r for r in proflog.rows(site="fused") if r["compiles"]]
+        assert rows and rows[0]["peak_bytes"] > 0 and rows[0]["compile_s"] > 0
+        ratio = rows[0]["budget_vs_actual_ratio"]
+        assert ratio is not None and math.isfinite(ratio) and ratio > 0
+        assert all(r["kind"] == "cuda" for r in proflog.rows(site="kernel"))
+        assert proflog.snapshot()["budget_vs_actual"]["fused"] == pytest.approx(ratio)
+    finally:
+        proflog.reset()
+        proflog.configure(enabled=False)

@@ -187,8 +187,8 @@ def test_serving_modules_are_scanned(module):
     scanned files, and their imports stay inside torch, numpy, the
     standard library and the port."""
     assert ROOT / module in _port_files()
-    stdlib = ("argparse", "concurrent", "dataclasses", "enum", "http", "json", "logging",
-              "math", "os", "queue", "random", "re", "shutil", "string", "tarfile",
+    stdlib = ("argparse", "concurrent", "dataclasses", "enum", "hashlib", "http", "json",
+              "logging", "math", "os", "queue", "random", "re", "shutil", "string", "tarfile",
               "tempfile", "threading", "time", "traceback", "typing", "zlib", "collections",
               "__future__")
     for name in _imports(ROOT / module):
@@ -251,13 +251,16 @@ PARALLEL_MODULES = sorted(
 def test_parallel_modules_are_scanned(module):
     """The mesh (parallel/) is among the scanned files, and its imports stay
     inside torch, numpy, the standard library and the port: no JAX, no
-    das_tpu and no torch.distributed (the mesh lives in one process)."""
+    das_tpu, and torch.distributed only in mesh.py, the one module that
+    crosses processes."""
     assert ROOT / module in _port_files()
     for name in _imports(ROOT / module):
         top = name.split(".")[0]
         assert top in ("torch", "numpy", "das_tpu_torch", "contextlib", "dataclasses",
-                       "typing", "__future__"), f"{module} imports {name}"
-        assert not name.startswith("torch.distributed"), f"{module} imports {name}"
+                       "datetime", "functools", "time", "typing", "__future__"), \
+            f"{module} imports {name}"
+        if not module.endswith("parallel/mesh.py"):
+            assert not name.startswith("torch.distributed"), f"{module} imports {name}"
 
 
 def test_sharded_default_device_raises_without_card():
