@@ -1,0 +1,358 @@
+"""The analyzer's project-wide call graph + light dataflow over
+stdlib-`ast` (never importing what it checks).
+
+Per-file syntactic scans miss contracts that span functions: DL001's
+"no host sync in a dispatch half" is escaped by one helper-function hop
+— the exact silent-serialization failure the async pipeline cannot
+afford — and the kernel-entry checks (DL011) follow a wrapper's CUDA
+branch into the helpers it calls.  This module gives every rule the
+same three layers:
+
+  * **module symbol tables** (`ModuleTable`, cached on the SourceFile
+    so the (path, mtime, size) file cache amortizes them): top-level
+    defs/classes/constants plus an import map that resolves
+    `from das_tpu_torch.x import y` / `import das_tpu_torch.x as z` to dotted
+    targets, collected from EVERY scope (this codebase imports lazily
+    inside functions to break cycles);
+  * **intra-repo call resolution** (`CallGraph.resolve_call`): bare
+    names through the import map and module scope, `self.method()`
+    through the enclosing class and its repo-resolvable bases,
+    `module.func()` through imported repo modules, constructor calls
+    to `Class.__init__`, and a local bound to a function
+    (`run = run_conj`, or either arm of a conditional) to every
+    function it was bound to.  Anything else (parameters holding callables,
+    attribute chains on unknown objects) resolves to None — the graph
+    under-approximates, deliberately: a lint rule built on it can
+    miss, but what it reports is real;
+  * **transitive reachability over function summaries**
+    (`CallGraph.walk`): BFS from any def node, nested defs folded into
+    their owner (a closure's effects belong to the function that runs
+    it), cycle-safe, with the shortest call path kept so findings can
+    render HOW a contract was reached, not just that it was.
+
+Function identity is a qualified name "module::Class.func" /
+"module::func" where `module` is the dotted das_tpu_torch module when the
+file sits under the package, else the file stem — so mutated-copy
+tests on loose files resolve their intra-module calls exactly like the
+installed tree.
+"""
+
+from __future__ import annotations
+
+import ast
+from collections import deque
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+
+from das_tpu_torch.analysis.core import AnalysisContext, SourceFile, attr_chain
+
+
+def module_dotted(sf: SourceFile) -> str:
+    """Dotted module name: from the das_tpu package root when the file
+    lives under it, else the bare stem ("__init__" files take their
+    package directory's name — planner/__init__.py is `planner`)."""
+    parts = list(sf.path.parts)
+    stem = sf.path.stem
+    if "das_tpu_torch" in parts[:-1]:
+        i = parts.index("das_tpu_torch")
+        mods = parts[i:-1] + ([stem] if stem != "__init__" else [])
+        return ".".join(mods)
+    if stem == "__init__" and len(parts) > 1:
+        return parts[-2]
+    return stem
+
+
+def scope_module(sf: SourceFile) -> str:
+    """Short module prefix for registry scopes ("fused", "planner"):
+    the stem, or the package directory for __init__ modules."""
+    stem = sf.path.stem
+    if stem == "__init__" and len(sf.path.parts) > 1:
+        return sf.path.parts[-2]
+    return stem
+
+
+class ModuleTable:
+    """One module's top-level symbols + its (all-scopes) import map."""
+
+    def __init__(self, sf: SourceFile):
+        self.sf = sf
+        self.dotted = module_dotted(sf)
+        #: top-level name -> FunctionDef/AsyncFunctionDef/ClassDef
+        self.defs: Dict[str, ast.AST] = {}
+        #: class name -> {method name -> def node}
+        self.methods: Dict[str, Dict[str, ast.AST]] = {}
+        #: class name -> base expression names (unresolved)
+        self.bases: Dict[str, List[ast.expr]] = {}
+        #: local name -> dotted import target ("das_tpu.kernels.budget",
+        #: "das_tpu.query.fused._TreeExecJob", ...)
+        self.imports: Dict[str, str] = {}
+        for node in sf.tree.body:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                self.defs[node.name] = node
+            elif isinstance(node, ast.ClassDef):
+                self.defs[node.name] = node
+                self.methods[node.name] = {
+                    m.name: m for m in node.body
+                    if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef))
+                }
+                self.bases[node.name] = list(node.bases)
+        for node in ast.walk(sf.tree):
+            if isinstance(node, ast.Import):
+                for alias in node.names:
+                    name = alias.asname or alias.name.split(".")[0]
+                    target = alias.name if alias.asname else name
+                    self.imports[name] = target
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                if node.level:
+                    continue  # no relative imports in this tree
+                for alias in node.names:
+                    self.imports[alias.asname or alias.name] = (
+                        f"{node.module}.{alias.name}"
+                    )
+
+
+def module_table(sf: SourceFile) -> ModuleTable:
+    """The module's symbol table, cached on the SourceFile (which is
+    itself cached by (path, mtime, size) — see core.collect_files)."""
+    table = getattr(sf, "_modtable", None)
+    if table is None:
+        table = ModuleTable(sf)
+        sf._modtable = table
+    return table
+
+
+class FunctionInfo:
+    """One top-level function or method, nested defs folded in."""
+
+    __slots__ = ("qname", "sf", "node", "class_name")
+
+    def __init__(self, qname: str, sf: SourceFile, node: ast.AST,
+                 class_name: Optional[str]):
+        self.qname = qname
+        self.sf = sf
+        self.node = node
+        self.class_name = class_name
+
+
+class CallGraph:
+    """Cross-module call graph over one AnalysisContext's file set.
+
+    Built once per analysis run (AnalysisContext.callgraph() caches it)
+    from the per-file ModuleTables; rules share it so the repo is
+    resolved once however many rules follow calls."""
+
+    def __init__(self, files: Sequence[SourceFile]):
+        self.tables: List[ModuleTable] = [module_table(sf) for sf in files]
+        #: dotted module name -> table (plus stem fallback for loose files)
+        self.by_module: Dict[str, ModuleTable] = {}
+        for t in self.tables:
+            self.by_module.setdefault(t.dotted, t)
+            self.by_module.setdefault(t.sf.name, t)
+        self._edges_memo: Dict[int, List[Tuple[int, str]]] = {}
+        self.functions: Dict[str, FunctionInfo] = {}
+        for t in self.tables:
+            for name, node in t.defs.items():
+                if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    q = f"{t.dotted}::{name}"
+                    self.functions[q] = FunctionInfo(q, t.sf, node, None)
+                elif isinstance(node, ast.ClassDef):
+                    for mname, mnode in t.methods[name].items():
+                        q = f"{t.dotted}::{name}.{mname}"
+                        self.functions[q] = FunctionInfo(
+                            q, t.sf, mnode, name
+                        )
+
+    # -- symbol resolution -------------------------------------------------
+
+    def _resolve_dotted(self, target: str) -> Optional[str]:
+        """A dotted import target -> qname of a repo function, walking
+        "module.symbol" and "package.module" splits."""
+        if target in self.by_module:
+            return None  # a module itself, not callable
+        if "." in target:
+            mod, sym = target.rsplit(".", 1)
+            table = self.by_module.get(mod)
+            if table is not None:
+                return self._resolve_in_table(table, sym)
+        return None
+
+    def _resolve_in_table(self, table: ModuleTable, name: str) -> Optional[str]:
+        node = table.defs.get(name)
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            return f"{table.dotted}::{name}"
+        if isinstance(node, ast.ClassDef):
+            init = self._method_qname(table, name, "__init__")
+            return init
+        if name in table.imports:  # re-export hop
+            return self._resolve_dotted(table.imports[name])
+        return None
+
+    def _class_table(self, table: ModuleTable, cls: str):
+        """(table, class name) where `cls` (as visible from `table`) is
+        actually defined — follows imports for cross-module bases."""
+        if cls in table.methods:
+            return table, cls
+        target = table.imports.get(cls)
+        if target and "." in target:
+            mod, sym = target.rsplit(".", 1)
+            t2 = self.by_module.get(mod)
+            if t2 is not None and sym in t2.methods:
+                return t2, sym
+        return None
+
+    def _method_qname(self, table: ModuleTable, cls: str, meth: str,
+                      _seen=None) -> Optional[str]:
+        """Method lookup through the class and its repo-resolvable
+        bases (one definition order pass, cycle-guarded)."""
+        _seen = _seen if _seen is not None else set()
+        loc = self._class_table(table, cls)
+        if loc is None or (id(loc[0]), loc[1]) in _seen:
+            return None
+        _seen.add((id(loc[0]), loc[1]))
+        t, c = loc
+        if meth in t.methods[c]:
+            return f"{t.dotted}::{c}.{meth}"
+        for base in t.bases.get(c, ()):  # single inheritance here
+            bname = base.id if isinstance(base, ast.Name) else None
+            if bname is None:
+                continue
+            q = self._method_qname(t, bname, meth, _seen)
+            if q is not None:
+                return q
+        return None
+
+    def resolve_call(self, sf: SourceFile, node: ast.Call,
+                     class_name: Optional[str]) -> Optional[str]:
+        """qname of the repo-local callee, or None (unresolvable —
+        parameters holding callables, foreign modules, dynamic attrs)."""
+        table = module_table(sf)
+        fn = node.func
+        if isinstance(fn, ast.Name):
+            name = fn.id
+            if name in table.defs:
+                return self._resolve_in_table(table, name)
+            if name in table.imports:
+                return self._resolve_dotted(table.imports[name])
+            return None
+        chain = attr_chain(fn)
+        if chain is None:
+            return None
+        parts = chain.split(".")
+        if parts[0] in ("self", "cls") and class_name and len(parts) == 2:
+            return self._method_qname(table, class_name, parts[1])
+        if len(parts) == 2:
+            base, sym = parts
+            target = table.imports.get(base)
+            if target is not None:
+                t2 = self.by_module.get(target)
+                if t2 is not None:
+                    return self._resolve_in_table(t2, sym)
+                return self._resolve_dotted(f"{target}.{sym}")
+            # Class.method / Class() via a local class
+            if base in table.methods and sym in table.methods[base]:
+                return f"{table.dotted}::{base}.{sym}"
+        return None
+
+    # -- summaries + reachability -----------------------------------------
+
+    def edges_from(self, sf: SourceFile, fn_node: ast.AST,
+                   class_name: Optional[str]) -> List[Tuple[int, str]]:
+        """Resolved (call line, callee qname) edges of one function,
+        nested defs included (their calls charge to the owner).
+        Memoized per def node — several rules (and several BFS roots)
+        revisit the same hot helpers."""
+        memo = self._edges_memo.get(id(fn_node))
+        if memo is not None:
+            return memo
+        out: List[Tuple[int, str]] = []
+        aliases = _local_aliases(fn_node)
+        for node in ast.walk(fn_node):
+            if isinstance(node, ast.Call):
+                q = self.resolve_call(sf, node, class_name)
+                if q is not None and q in self.functions:
+                    out.append((node.lineno, q))
+                elif isinstance(node.func, ast.Name):
+                    # `run = run_conj; ...; run(...)`: every callable the
+                    # local was assigned
+                    for target in aliases.get(node.func.id, ()):
+                        probe = ast.Call(func=target, args=[], keywords=[])
+                        q = self.resolve_call(sf, probe, class_name)
+                        if q is not None and q in self.functions:
+                            out.append((node.lineno, q))
+        self._edges_memo[id(fn_node)] = out
+        return out
+
+    def walk(self, sf: SourceFile, root_node: ast.AST,
+             class_name: Optional[str],
+             stop: Optional[Callable[["FunctionInfo"], bool]] = None,
+             ) -> Iterable[
+                 Tuple["FunctionInfo", Tuple[Tuple[int, str], ...]]]:
+        """BFS over resolved edges from `root_node`, yielding each
+        reachable FunctionInfo ONCE with the shortest call path that
+        reached it — a tuple of (call line in caller, callee qname)
+        hops, root first.  The root itself is not yielded, nor is a
+        function for which `stop(info)` is true (nor what only it
+        reaches)."""
+        seen = set()
+        queue = deque()
+        for line, q in self.edges_from(sf, root_node, class_name):
+            if q not in seen:
+                seen.add(q)
+                queue.append((q, ((line, q),)))
+        while queue:
+            q, path = queue.popleft()
+            info = self.functions[q]
+            if stop is not None and stop(info):
+                continue
+            yield info, path
+            for line, nq in self.edges_from(
+                info.sf, info.node, info.class_name
+            ):
+                if nq not in seen:
+                    seen.add(nq)
+                    queue.append((nq, path + ((line, nq),)))
+
+
+def _local_aliases(fn_node: ast.AST) -> Dict[str, List[ast.expr]]:
+    """Local names bound to a function reference inside `fn_node`:
+    `name = helper`, `name = mod.helper`, or a conditional of those
+    (`dispatch = a.f if sharded else a.g`), each name to every such
+    expression it is assigned."""
+    out: Dict[str, List[ast.expr]] = {}
+    for node in ast.walk(fn_node):
+        if not (
+            isinstance(node, ast.Assign)
+            and len(node.targets) == 1
+            and isinstance(node.targets[0], ast.Name)
+        ):
+            continue
+        values = [node.value]
+        if isinstance(node.value, ast.IfExp):
+            values = [node.value.body, node.value.orelse]
+        for v in values:
+            if isinstance(v, (ast.Name, ast.Attribute)):
+                out.setdefault(node.targets[0].id, []).append(v)
+    return out
+
+
+#: cross-run graph memo keyed by the identity of the (cached) file set:
+#: core._FILE_CACHE keeps SourceFiles alive and stable until their file
+#: changes, so two analyses of the same unchanged set share one graph —
+#: the test suite re-analyzes das_tpu_torch/ many times.  Small and bounded:
+#: distinct file sets per process are a handful.
+_GRAPH_MEMO: Dict[Tuple[int, ...], CallGraph] = {}
+
+
+def callgraph(ctx: AnalysisContext) -> CallGraph:
+    """The run's shared CallGraph, built lazily, cached on the context
+    AND memoized per identical file set across runs."""
+    graph = getattr(ctx, "_callgraph", None)
+    if graph is None:
+        key = tuple(id(sf) for sf in ctx.files)
+        graph = _GRAPH_MEMO.get(key)
+        if graph is None:
+            if len(_GRAPH_MEMO) > 16:
+                _GRAPH_MEMO.clear()
+            graph = CallGraph(ctx.files)
+            _GRAPH_MEMO[key] = graph
+        ctx._callgraph = graph
+    return graph

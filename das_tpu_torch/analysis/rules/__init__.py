@@ -1,0 +1,21 @@
+"""Rule modules register themselves with core.register at import time."""
+
+from das_tpu_torch.analysis.rules import (  # noqa: F401
+    dl001_host_sync,
+    dl002_plan_sig,
+    dl003_no_environment,
+    dl004_counters,
+    dl005_shared_memory,
+    dl006_locks,
+    dl007_cache_guard,
+    dl008_planner_routes,
+    dl009_collectives,
+    dl010_transitive_sync,
+    dl011_kernel_entry,
+    dl012_retrace,
+    dl013_fetch_sites,
+    dl014_obs_registry,
+    dl015_fault_sites,
+    dl016_proflog_sites,
+    dl017_durability,
+)

@@ -1,0 +1,223 @@
+"""DL002 — plan-signature completeness.
+
+Contract (query/fused.py, parallel/fused_sharded.py): a plan's program
+is keyed by its signature (FusedTermSig / FusedPlanSig / FusedExactSig /
+FusedTreeSig / ShardedPlanSig / ShardedTreeSig) — the ledger's digest,
+the tree-program cache, the learned capacities — so EVERY property that
+changes what the program runs must be a field of that frozen dataclass,
+and every field must participate in __eq__/__hash__.  A routing value
+the signature doesn't carry lets two different programs collide under
+one key, and the wrong one replays silently (wrong layout, or at
+sharded scale wrong answers — cache poisoning, not a crash).
+
+Mechanical checks, per dataclass whose name ends in `Sig` (term sigs
+ride along — they nest inside the plan sigs' hash):
+
+  1. the decorator must say `@dataclass(frozen=True)` and not disable
+     eq — an unfrozen or eq-less sig is unhashable-by-value;
+  2. no field may opt out via `field(hash=False)`/`field(compare=False)`
+     — that is precisely a routing input missing from the cache key;
+  3. every attribute read through a parameter ANNOTATED with the sig
+     class (`def run_conj(sig: FusedPlanSig, ...)` — the
+     routing/program consumers), including `getattr(sig, "x"
+     [, default])`, must be a declared field, property, or method —
+     the static catch for a routing input left out of the key;
+  4. constructor calls must not exceed the field count positionally nor
+     pass unknown keywords.
+
+Checks 3/4 resolve sig classes across the whole analyzed set, so
+`run_sharded_conj` reading a `FusedTermSig` imported from
+query/fused.py is checked too.
+"""
+
+from __future__ import annotations
+
+import ast
+from typing import Dict, Iterable, List, Optional, Set, Tuple
+
+from das_tpu_torch.analysis.core import AnalysisContext, Finding, const_str, register
+
+
+class _SigClass:
+    def __init__(self, sf_posix: str, node: ast.ClassDef):
+        self.posix = sf_posix
+        self.node = node
+        self.name = node.name
+        self.fields: List[str] = []
+        self.members: Set[str] = set()  # methods + properties
+        self.frozen = False
+        self.eq_disabled = False
+        self.opted_out: List[Tuple[str, int]] = []  # field, line
+        self._parse()
+
+    def _parse(self) -> None:
+        for dec in self.node.decorator_list:
+            if isinstance(dec, ast.Call) and getattr(
+                dec.func, "id", getattr(dec.func, "attr", "")
+            ) == "dataclass":
+                for kw in dec.keywords:
+                    if kw.arg == "frozen" and getattr(kw.value, "value", None):
+                        self.frozen = True
+                    if kw.arg == "eq" and getattr(kw.value, "value", True) is False:
+                        self.eq_disabled = True
+            elif getattr(dec, "id", getattr(dec, "attr", "")) == "dataclass":
+                pass  # bare @dataclass: not frozen
+        for stmt in self.node.body:
+            if isinstance(stmt, ast.AnnAssign) and isinstance(
+                stmt.target, ast.Name
+            ):
+                name = stmt.target.id
+                ann = ast.unparse(stmt.annotation)
+                if ann.startswith("ClassVar"):
+                    continue
+                self.fields.append(name)
+                if isinstance(stmt.value, ast.Call):
+                    chain = ast.unparse(stmt.value.func)
+                    if chain.endswith("field"):
+                        for kw in stmt.value.keywords:
+                            if kw.arg in ("hash", "compare") and getattr(
+                                kw.value, "value", True
+                            ) is False:
+                                self.opted_out.append((name, stmt.lineno))
+            elif isinstance(stmt, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                self.members.add(stmt.name)
+
+
+def _collect_sig_classes(ctx: AnalysisContext) -> Dict[str, _SigClass]:
+    out: Dict[str, _SigClass] = {}
+    for sf in ctx.modules():
+        for node in sf.nodes:
+            if isinstance(node, ast.ClassDef) and node.name.endswith("Sig"):
+                is_dc = any(
+                    "dataclass" in ast.unparse(d)
+                    for d in node.decorator_list
+                )
+                if is_dc:
+                    out[node.name] = _SigClass(sf.posix, node)
+    return out
+
+
+def _annotation_names(node: Optional[ast.AST]) -> List[str]:
+    """Candidate class names an annotation may refer to — unwrapping
+    Optional[...]/Union[...]/`X | None` so a consumer taking an optional
+    sig keeps the rule's protection."""
+    if node is None:
+        return []
+    if isinstance(node, ast.Name):
+        return [node.id]
+    if isinstance(node, ast.Attribute):
+        return [node.attr]
+    if isinstance(node, ast.Constant) and isinstance(node.value, str):
+        return [node.value.rsplit(".", 1)[-1].strip("'\"")]
+    if isinstance(node, ast.Subscript):
+        base = getattr(node.value, "id", getattr(node.value, "attr", ""))
+        if base in ("Optional", "Union"):
+            inner = node.slice
+            elts = inner.elts if isinstance(inner, ast.Tuple) else [inner]
+            return [n for e in elts for n in _annotation_names(e)]
+        return []
+    if isinstance(node, ast.BinOp) and isinstance(node.op, ast.BitOr):
+        return _annotation_names(node.left) + _annotation_names(node.right)
+    return []
+
+
+def _check_reads(
+    sf_posix: str, fn: ast.AST, param: str, sig: _SigClass
+) -> Iterable[Finding]:
+    known = set(sig.fields) | sig.members
+    for node in ast.walk(fn):
+        if (
+            isinstance(node, ast.Attribute)
+            and isinstance(node.value, ast.Name)
+            and node.value.id == param
+            and node.attr not in known
+            and not node.attr.startswith("__")
+        ):
+            yield Finding(
+                "DL002", sf_posix, node.lineno,
+                f"`{param}.{node.attr}` read by build/routing code but "
+                f"`{node.attr}` is not a declared field of "
+                f"{sig.name} — a routing input missing from the plan "
+                "signature poisons the executable cache",
+            )
+        elif (
+            isinstance(node, ast.Call)
+            and isinstance(node.func, ast.Name)
+            and node.func.id == "getattr"
+            and len(node.args) >= 2
+            and isinstance(node.args[0], ast.Name)
+            and node.args[0].id == param
+        ):
+            attr = const_str(node.args[1])
+            if attr is not None and attr not in known:
+                yield Finding(
+                    "DL002", sf_posix, node.lineno,
+                    f"getattr({param}, {attr!r}) but `{attr}` is not a "
+                    f"declared field of {sig.name} — the default silently "
+                    "papers over a missing plan-signature field",
+                )
+
+
+@register("DL002", "plan-signature completeness")
+def check(ctx: AnalysisContext) -> Iterable[Finding]:
+    sigs = _collect_sig_classes(ctx)
+    # 1/2: hash integrity of the sig dataclasses themselves
+    for sig in sigs.values():
+        if not sig.frozen:
+            yield Finding(
+                "DL002", sig.posix, sig.node.lineno,
+                f"{sig.name} must be @dataclass(frozen=True) — plan "
+                "signatures are cache keys and must hash by value",
+            )
+        if sig.eq_disabled:
+            yield Finding(
+                "DL002", sig.posix, sig.node.lineno,
+                f"{sig.name} disables eq — every field must feed the "
+                "cache key",
+            )
+        for fname, lineno in sig.opted_out:
+            yield Finding(
+                "DL002", sig.posix, lineno,
+                f"{sig.name}.{fname} opts out of hash/compare — a "
+                "routing field excluded from the cache key is exactly "
+                "the tiled/vmem_budget class of bug",
+            )
+    # 3: attribute reads through annotated consumer params
+    for sf in ctx.modules():
+        for node in sf.nodes:
+            if not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                continue
+            args = list(node.args.posonlyargs) + list(node.args.args) + list(
+                node.args.kwonlyargs
+            )
+            for a in args:
+                for ann in _annotation_names(a.annotation):
+                    if ann in sigs:
+                        yield from _check_reads(
+                            sf.posix, node, a.arg, sigs[ann]
+                        )
+                        break
+    # 4: constructor discipline
+    for sf in ctx.modules():
+        for node in sf.nodes:
+            if not isinstance(node, ast.Call):
+                continue
+            name = getattr(
+                node.func, "id", getattr(node.func, "attr", None)
+            )
+            if name not in sigs:
+                continue
+            sig = sigs[name]
+            if len(node.args) > len(sig.fields):
+                yield Finding(
+                    "DL002", sf.posix, node.lineno,
+                    f"{name}(...) called with {len(node.args)} positional "
+                    f"args but only {len(sig.fields)} fields are declared",
+                )
+            for kw in node.keywords:
+                if kw.arg is not None and kw.arg not in sig.fields:
+                    yield Finding(
+                        "DL002", sf.posix, node.lineno,
+                        f"{name}(...) passes unknown keyword `{kw.arg}` — "
+                        "not a declared field",
+                    )

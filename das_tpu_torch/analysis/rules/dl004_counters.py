@@ -1,0 +1,281 @@
+"""DL004 — route counter key discipline.
+
+Contract (ops/counters.py): the port's parity and serving suites pin
+ROUTE_COUNTS totals so a refactor cannot silently re-route eligible
+shapes to the staged or host paths.  That only works if the key strings
+are a closed, declared set: a typo'd key (`ROUTE_COUNTS["fused_kernal"]`)
+would count into a fresh dict slot, the pinned key would stay zero...
+and the pins only catch it if someone thought to pin that path.
+`das_tpu_torch/ops/counters.py` declares ROUTE_KEYS and
+query/compiler.py builds ROUTE_COUNTS from it; this rule pins the
+literals (DISPATCH_COUNTS / DISPATCH_KEYS / `record_dispatch`, which
+`das_tpu` has and the port does not, keep the same discipline should
+they come back):
+
+  * every string key used to subscript ROUTE_COUNTS (assignment, +=,
+    or read), or assigned to a local that subscripts it, must be
+    declared;
+  * a computed key is resolved before anything is called dead: a local
+    assigned string constants (`route = "fused" ...
+    ROUTE_COUNTS[route]`), and `self.<attr>` (`ROUTE_COUNTS[self.route]`)
+    through every class-body string constant of that attribute in the
+    method's class and the classes derived from it (query/fused.py
+    `_TreeExecJob.route`, overridden by the sharded tree job);
+  * every declared key must be used by at least one counting site;
+  * every declared key must appear (quoted) in at least one of the
+    port's test files (`tests/test_torch_*.py`) — an unpinned counter is
+    telemetry nobody would notice breaking;
+  * a literal dict assigned to ROUTE_COUNTS must have exactly the
+    declared keys (the real dict is a comprehension over the registry,
+    so this leg guards fixtures and future forks).
+"""
+
+from __future__ import annotations
+
+import ast
+from typing import Dict, Iterable, List, Optional, Set, Tuple
+
+from das_tpu_torch.analysis.core import (
+    AnalysisContext,
+    Finding,
+    const_str,
+    module_assign,
+    register,
+    str_collection,
+)
+
+_DICT_TO_REGISTRY = {
+    "DISPATCH_COUNTS": "DISPATCH_KEYS",
+    "ROUTE_COUNTS": "ROUTE_KEYS",
+}
+
+
+def _counts_name(node: ast.AST) -> Optional[str]:
+    """DISPATCH_COUNTS / ROUTE_COUNTS for Name or dotted access."""
+    if isinstance(node, ast.Name) and node.id in _DICT_TO_REGISTRY:
+        return node.id
+    if isinstance(node, ast.Attribute) and node.attr in _DICT_TO_REGISTRY:
+        return node.attr
+    return None
+
+
+def _find_registries(ctx: AnalysisContext):
+    out = {}
+    for sf in ctx.modules():
+        for reg_name in ("DISPATCH_KEYS", "ROUTE_KEYS"):
+            keys = str_collection(module_assign(sf.tree, reg_name))
+            if keys is not None and reg_name not in out:
+                out[reg_name] = (sf, keys)
+    return out
+
+
+def _scope_nodes(func: ast.AST) -> Iterable[ast.AST]:
+    """Walk a function's body, pruning nested function scopes — each
+    nested def is its own scope and is visited by its own pass."""
+    stack: List[ast.AST] = list(ast.iter_child_nodes(func))
+    while stack:
+        node = stack.pop()
+        yield node
+        if not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            stack.extend(ast.iter_child_nodes(node))
+
+
+def _class_attr_values(ctx: AnalysisContext) -> Dict[str, Dict[str, Set[str]]]:
+    """class name -> attribute -> the string constants its class body
+    assigns it, each class's values merged with those of every class
+    derived from it (by base name, across the analyzed set): the values
+    `self.<attr>` can take in a method of that class."""
+    own: Dict[str, Dict[str, Set[str]]] = {}
+    bases: Dict[str, List[str]] = {}
+    for sf in ctx.modules():
+        for node in sf.nodes:
+            if not isinstance(node, ast.ClassDef):
+                continue
+            attrs = own.setdefault(node.name, {})
+            for stmt in node.body:
+                if isinstance(stmt, ast.Assign):
+                    val = const_str(stmt.value)
+                    for t in stmt.targets:
+                        if isinstance(t, ast.Name) and val is not None:
+                            attrs.setdefault(t.id, set()).add(val)
+            bases[node.name] = [
+                getattr(b, "id", getattr(b, "attr", "")) for b in node.bases
+            ]
+
+    def derived(cls: str, seen: Set[str]) -> Set[str]:
+        out = {cls}
+        for sub, bs in bases.items():
+            if cls in bs and sub not in seen:
+                seen.add(sub)
+                out |= derived(sub, seen)
+        return out
+
+    merged: Dict[str, Dict[str, Set[str]]] = {}
+    for cls in own:
+        attrs: Dict[str, Set[str]] = {}
+        for sub in derived(cls, {cls}):
+            for a, vals in own.get(sub, {}).items():
+                attrs.setdefault(a, set()).update(vals)
+        merged[cls] = attrs
+    return merged
+
+
+def _self_key_sites(sf, class_attrs) -> Iterable[Tuple[int, str, str]]:
+    """(line, counts-dict name, key) for `COUNTS[self.<attr>]` inside a
+    method, one per value the attribute can take."""
+    for cls in sf.nodes:
+        if not isinstance(cls, ast.ClassDef):
+            continue
+        attrs = class_attrs.get(cls.name, {})
+        for node in ast.walk(cls):
+            if (
+                isinstance(node, ast.Subscript)
+                and _counts_name(node.value)
+                and isinstance(node.slice, ast.Attribute)
+                and isinstance(node.slice.value, ast.Name)
+                and node.slice.value.id == "self"
+            ):
+                for key in sorted(attrs.get(node.slice.attr, ())):
+                    yield node.lineno, _counts_name(node.value), key
+
+
+def _use_sites(sf) -> Iterable[Tuple[int, str, str]]:
+    """(line, counts-dict name, key literal) for every counting site."""
+    for node in sf.nodes:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            # resolve `route = "staged"; ...; ROUTE_COUNTS[route] += 1`
+            # one function at a time: collect the names used as dynamic
+            # subscripts, then every string constant assigned to them
+            dyn: Dict[str, str] = {}
+            for sub in _scope_nodes(node):
+                if (
+                    isinstance(sub, ast.Subscript)
+                    and _counts_name(sub.value)
+                    and isinstance(sub.slice, ast.Name)
+                ):
+                    dyn[sub.slice.id] = _counts_name(sub.value)
+            if not dyn:
+                continue
+            for sub in _scope_nodes(node):
+                if isinstance(sub, ast.Assign):
+                    vals = [const_str(sub.value)]
+                    if isinstance(sub.value, ast.IfExp):
+                        vals = [
+                            const_str(sub.value.body),
+                            const_str(sub.value.orelse),
+                        ]
+                    vals = [v for v in vals if v is not None]
+                    for t in sub.targets:
+                        if isinstance(t, ast.Name) and t.id in dyn:
+                            for v in vals:
+                                yield sub.lineno, dyn[t.id], v
+    for node in sf.nodes:
+        if isinstance(node, ast.Subscript):
+            counts = _counts_name(node.value)
+            key = const_str(node.slice)
+            if counts and key is not None:
+                yield node.lineno, counts, key
+        elif isinstance(node, ast.Call):
+            fname = getattr(
+                node.func, "id", getattr(node.func, "attr", None)
+            )
+            if fname == "record_dispatch" and node.args:
+                key = const_str(node.args[0])
+                if key is not None:
+                    yield node.lineno, "DISPATCH_COUNTS", key
+
+
+def _dict_literal_keys(sf, dict_name: str) -> Optional[Set[str]]:
+    node = module_assign(sf.tree, dict_name)
+    if isinstance(node, ast.Dict):
+        keys = {const_str(k) for k in node.keys if k is not None}
+        keys.discard(None)
+        return keys  # type: ignore[return-value]
+    return None
+
+
+@register("DL004", "counter keys vs ops/counters.py registry")
+def check(ctx: AnalysisContext) -> Iterable[Finding]:
+    registries = _find_registries(ctx)
+    uses: List[Tuple[str, int, str, str]] = []
+    class_attrs = _class_attr_values(ctx)
+    for sf in ctx.modules():
+        for line, counts, key in _use_sites(sf):
+            uses.append((sf.posix, line, counts, key))
+        for line, counts, key in _self_key_sites(sf, class_attrs):
+            uses.append((sf.posix, line, counts, key))
+    if not uses and not registries:
+        return
+    for posix, line, counts, key in uses:
+        reg_name = _DICT_TO_REGISTRY[counts]
+        if reg_name not in registries:
+            yield Finding(
+                "DL004", posix, line,
+                f"{counts}[{key!r}] but no {reg_name} registry in the "
+                "analyzed set (das_tpu_torch/ops/counters.py declares it)",
+            )
+            continue
+        reg_sf, keys = registries[reg_name]
+        if key not in keys:
+            yield Finding(
+                "DL004", posix, line,
+                f"{counts}[{key!r}] is not declared in {reg_name} "
+                f"({reg_sf.short}) — an undeclared key dodges every "
+                "dispatch-count regression pin",
+            )
+    used_by_reg: Dict[str, Set[str]] = {"DISPATCH_KEYS": set(), "ROUTE_KEYS": set()}
+    for _p, _l, counts, key in uses:
+        used_by_reg[_DICT_TO_REGISTRY[counts]].add(key)
+    if ctx.partial:
+        # dead-key and test-reference legs are only provable on the
+        # FULL set — a partial run may not include the counting module
+        # (zeroed BEFORE the tests/ sweep: a partial run exists to be
+        # fast, reading the whole tests tree for an empty loop isn't)
+        registries = {}
+    tests_text = None
+    if registries and ctx.tests_dir is not None and ctx.tests_dir.is_dir():
+        tests_text = "\n".join(
+            p.read_text()
+            for p in sorted(ctx.tests_dir.rglob("test_torch_*.py"))
+        )
+    for reg_name, (sf, keys) in registries.items():
+        line = next(
+            (
+                n.lineno for n in sf.tree.body
+                if isinstance(n, ast.Assign)
+                and any(getattr(t, "id", None) == reg_name for t in n.targets)
+            ),
+            1,
+        )
+        for key in keys:
+            if key not in used_by_reg[reg_name]:
+                yield Finding(
+                    "DL004", sf.posix, line,
+                    f"{reg_name} declares {key!r} but no counting site "
+                    "uses it — dead counter key",
+                )
+            if tests_text is not None and (
+                f'"{key}"' not in tests_text and f"'{key}'" not in tests_text
+            ):
+                yield Finding(
+                    "DL004", sf.posix, line,
+                    f"{reg_name} key {key!r} is referenced by no test of "
+                    "the port — pin it (tests/test_torch_lint.py registry "
+                    "pin at minimum)",
+                )
+    # dict literals must mirror the registry exactly
+    for sf in ctx.modules():
+        for dict_name, reg_name in _DICT_TO_REGISTRY.items():
+            lit = _dict_literal_keys(sf, dict_name)
+            if lit is None or reg_name not in registries:
+                continue
+            _rsf, keys = registries[reg_name]
+            missing = set(keys) - lit
+            extra = lit - set(keys)
+            if missing or extra:
+                yield Finding(
+                    "DL004", sf.posix, 1,
+                    f"{dict_name} literal drifts from {reg_name}: "
+                    f"missing={sorted(missing)} extra={sorted(extra)} — "
+                    "build the dict from the registry instead",
+                )

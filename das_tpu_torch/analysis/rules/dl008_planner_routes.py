@@ -1,0 +1,226 @@
+"""DL008 — planner routes and counter keys from the ops/counters.py
+registries.
+
+Contract (planner/, ops/counters.py): the cost-based
+planner (das_tpu_torch/planner) PREDICTS execution routes and counts its own
+telemetry — and both vocabularies are closed, declared sets:
+
+  * every route string the planner emits (a `route = "..."` assignment
+    or a `route="..."` keyword, e.g. into `PlannedProgram`) must be a
+    member of `ROUTE_KEYS` (ops/counters.py) — a planner inventing a
+    route no counter tracks would make its explain/telemetry output
+    unverifiable against the executors' actual route accounting, and
+    the route-count regression pins could never catch the drift;
+  * every `PLANNER_COUNTS[...]` key literal — anywhere in the tree,
+    including the executors' planner hooks — must be declared in
+    `PLANNER_KEYS`, every declared key must be counted somewhere, and a
+    literal dict named PLANNER_COUNTS must mirror the registry exactly
+    (the DL004 discipline, applied to the planner's own counter set).
+
+Scope: the route-literal leg applies to planner modules — a file whose
+path contains "planner", or that references the planner markers
+(PLANNER_COUNTS / PLANNER_KEYS / PlannedProgram).  Executor-side route
+locals stay DL004's jurisdiction (they subscript ROUTE_COUNTS), and the
+kernels' budget-route locals ("single"/"tiled"/"lowered") never collide
+because those are assigned from `budget.ROUTE_*` names, not literals.
+Dynamic subscripts resolve like DL004: a local assigned only string
+constants that later subscripts PLANNER_COUNTS pins those constants.
+"""
+
+from __future__ import annotations
+
+import ast
+from typing import Iterable, List, Optional, Set, Tuple
+
+from das_tpu_torch.analysis.core import (
+    AnalysisContext,
+    Finding,
+    const_str,
+    module_assign,
+    register,
+    str_collection,
+)
+
+_MARKERS = ("PLANNER_COUNTS", "PLANNER_KEYS", "PlannedProgram")
+
+
+def _find_registry(ctx: AnalysisContext, name: str):
+    for sf in ctx.modules():
+        keys = str_collection(module_assign(sf.tree, name))
+        if keys is not None:
+            return sf, keys
+    return None
+
+
+def _in_scope(sf) -> bool:
+    if "planner" in sf.posix:
+        return True
+    for node in sf.nodes:
+        if isinstance(node, ast.Name) and node.id in _MARKERS:
+            return True
+        if isinstance(node, ast.Attribute) and node.attr in _MARKERS:
+            return True
+    return False
+
+
+def _literals(node: ast.AST) -> List[str]:
+    """String constants an expression can evaluate to: plain constants
+    and IfExp branches (nested), the shapes route assignments take."""
+    s = const_str(node)
+    if s is not None:
+        return [s]
+    if isinstance(node, ast.IfExp):
+        return _literals(node.body) + _literals(node.orelse)
+    return []
+
+
+def _route_sites(sf) -> Iterable[Tuple[int, str]]:
+    """(line, literal) for every route string the module emits."""
+    for node in sf.nodes:
+        targets: List[ast.AST] = []
+        value: Optional[ast.AST] = None
+        if isinstance(node, ast.Assign):
+            targets, value = node.targets, node.value
+        elif isinstance(node, ast.AnnAssign) and node.value is not None:
+            targets, value = [node.target], node.value
+        for t in targets:
+            name = getattr(t, "id", getattr(t, "attr", None))
+            if name == "route" and value is not None:
+                for lit in _literals(value):
+                    yield node.lineno, lit
+        if isinstance(node, ast.Call):
+            for kw in node.keywords:
+                if kw.arg == "route":
+                    for lit in _literals(kw.value):
+                        yield node.lineno, lit
+
+
+def _counts_name(node: ast.AST) -> bool:
+    return (
+        isinstance(node, ast.Name) and node.id == "PLANNER_COUNTS"
+    ) or (
+        isinstance(node, ast.Attribute) and node.attr == "PLANNER_COUNTS"
+    )
+
+
+def _scope_nodes(func: ast.AST) -> Iterable[ast.AST]:
+    stack: List[ast.AST] = list(ast.iter_child_nodes(func))
+    while stack:
+        node = stack.pop()
+        yield node
+        if not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            stack.extend(ast.iter_child_nodes(node))
+
+
+def _counter_sites(sf) -> Iterable[Tuple[int, str]]:
+    """(line, key literal) for every PLANNER_COUNTS counting site,
+    including DL004-style dynamic locals (`method = "dp"; ...;
+    PLANNER_COUNTS[method] += 1`)."""
+    for node in sf.nodes:
+        if isinstance(node, ast.Subscript) and _counts_name(node.value):
+            key = const_str(node.slice)
+            if key is not None:
+                yield node.lineno, key
+    for node in sf.nodes:
+        if not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        dyn: Set[str] = set()
+        for sub in _scope_nodes(node):
+            if (
+                isinstance(sub, ast.Subscript)
+                and _counts_name(sub.value)
+                and isinstance(sub.slice, ast.Name)
+            ):
+                dyn.add(sub.slice.id)
+        if not dyn:
+            continue
+        for sub in _scope_nodes(node):
+            if isinstance(sub, ast.Assign):
+                for t in sub.targets:
+                    if isinstance(t, ast.Name) and t.id in dyn:
+                        for lit in _literals(sub.value):
+                            yield sub.lineno, lit
+
+
+@register("DL008", "planner routes / counter keys vs ops/counters.py")
+def check(ctx: AnalysisContext) -> Iterable[Finding]:
+    route_reg = _find_registry(ctx, "ROUTE_KEYS")
+    planner_reg = _find_registry(ctx, "PLANNER_KEYS")
+    counter_uses: List[Tuple[str, int, str]] = []
+    for sf in ctx.modules():
+        if not _in_scope(sf):
+            continue
+        for line, lit in _route_sites(sf):
+            if route_reg is None:
+                yield Finding(
+                    "DL008", sf.posix, line,
+                    f"planner route {lit!r} but no ROUTE_KEYS registry in "
+                    "the analyzed set (das_tpu_torch/ops/counters.py declares it)",
+                )
+            elif lit not in route_reg[1]:
+                yield Finding(
+                    "DL008", sf.posix, line,
+                    f"planner route {lit!r} is not declared in ROUTE_KEYS "
+                    f"({route_reg[0].short}) — a route no counter tracks "
+                    "makes planner telemetry unverifiable against the "
+                    "executors' route accounting",
+                )
+        for line, lit in _counter_sites(sf):
+            counter_uses.append((sf.posix, line, lit))
+    used: Set[str] = set()
+    for posix, line, key in counter_uses:
+        used.add(key)
+        if planner_reg is None:
+            yield Finding(
+                "DL008", posix, line,
+                f"PLANNER_COUNTS[{key!r}] but no PLANNER_KEYS registry in "
+                "the analyzed set (das_tpu_torch/ops/counters.py declares it)",
+            )
+        elif key not in planner_reg[1]:
+            yield Finding(
+                "DL008", posix, line,
+                f"PLANNER_COUNTS[{key!r}] is not declared in PLANNER_KEYS "
+                f"({planner_reg[0].short}) — an undeclared key dodges the "
+                "planner-telemetry pins",
+            )
+    # dead-key entries are only provable on the FULL set (not under --allow-partial)
+    if planner_reg is not None and counter_uses and not ctx.partial:
+        sf, keys = planner_reg
+        line = next(
+            (
+                n.lineno for n in sf.tree.body
+                if isinstance(n, ast.Assign)
+                and any(
+                    getattr(t, "id", None) == "PLANNER_KEYS"
+                    for t in n.targets
+                )
+            ),
+            1,
+        )
+        for key in keys:
+            if key not in used:
+                yield Finding(
+                    "DL008", sf.posix, line,
+                    f"PLANNER_KEYS declares {key!r} but no counting site "
+                    "uses it — dead planner counter key",
+                )
+    # literal dicts named PLANNER_COUNTS must mirror the registry
+    if planner_reg is not None:
+        _rsf, keys = planner_reg
+        for sf in ctx.modules():
+            node = module_assign(sf.tree, "PLANNER_COUNTS")
+            if isinstance(node, ast.Dict):
+                lit: Set[str] = set()
+                for k in node.keys:
+                    s = const_str(k) if k is not None else None
+                    if s is not None:
+                        lit.add(s)
+                missing = set(keys) - lit
+                extra = lit - set(keys)
+                if missing or extra:
+                    yield Finding(
+                        "DL008", sf.posix, 1,
+                        "PLANNER_COUNTS literal drifts from PLANNER_KEYS: "
+                        f"missing={sorted(missing)} extra={sorted(extra)} "
+                        "— build the dict from the registry instead",
+                    )

@@ -1,0 +1,144 @@
+"""DL014 — span/metric name registry discipline.
+
+Contract: the obs layer's value is that dashboards, Perfetto queries
+and the percentile headlines key on STABLE names.  A typo'd
+literal (`obs.span("serve.dipsatch")`) records into a lane nobody
+watches while the declared name goes silent — the DL004 failure mode,
+re-created one layer up.  `das_tpu_torch/obs/registry.py` declares the three
+closed sets (SPAN_NAMES / COUNTER_NAMES / HISTOGRAM_NAMES; the metric
+dicts are BUILT from them), and this rule pins the literals both ways:
+
+  * every string literal passed as the NAME argument of a recording
+    call — `span(...)`, `event(...)`, `annotation(...)`, `record(...)`
+    (first arg) and `counter(...)` / `histogram(...)` — anywhere in the
+    analyzed set must be a declared member of the matching registry;
+  * every declared name must be used by at least one recording call
+    site (full-set runs only — a partial (--allow-partial) subset may simply not
+    include the caller): a stale entry is dead vocabulary the docs and
+    dashboards would keep promising.
+
+Attribution is syntactic (bare name or attribute, the DL004
+`record_dispatch` idiom): naming a function `span`/`counter`/... in
+das_tpu_torch/ and passing it a string first argument OPTS INTO this
+discipline — which is the point; observability entry points must not
+be ambiguous.
+"""
+
+from __future__ import annotations
+
+import ast
+from typing import Dict, Iterable, List, Set, Tuple
+
+from das_tpu_torch.analysis.core import (
+    AnalysisContext,
+    Finding,
+    const_str,
+    module_assign,
+    register,
+    str_collection,
+)
+
+#: recording-call function name -> the registry its first argument
+#: must belong to.  `record` is the recorder's low-level entry (used
+#: where the span's timing already exists, e.g. around the settle
+#: fetch); `annotation` is the torch.profiler twin sharing the span
+#: vocabulary.
+_CALL_TO_REGISTRY = {
+    "span": "SPAN_NAMES",
+    "event": "SPAN_NAMES",
+    "annotation": "SPAN_NAMES",
+    "record": "SPAN_NAMES",
+    "counter": "COUNTER_NAMES",
+    "histogram": "HISTOGRAM_NAMES",
+}
+
+_REGISTRY_NAMES = ("SPAN_NAMES", "COUNTER_NAMES", "HISTOGRAM_NAMES")
+
+
+def _find_registries(ctx: AnalysisContext):
+    """{registry name: (SourceFile, names)} — first declaring module
+    wins (das_tpu_torch/obs/registry.py in the real tree; fixtures declare
+    their own)."""
+    out = {}
+    for sf in ctx.modules():
+        for reg_name in _REGISTRY_NAMES:
+            keys = str_collection(module_assign(sf.tree, reg_name))
+            if keys is not None and reg_name not in out:
+                out[reg_name] = (sf, keys)
+    return out
+
+
+def _call_name(node: ast.Call):
+    fn = node.func
+    if isinstance(fn, ast.Name):
+        return fn.id
+    if isinstance(fn, ast.Attribute):
+        return fn.attr
+    return None
+
+
+def _use_sites(sf) -> Iterable[Tuple[int, str, str]]:
+    """(line, registry name, literal) for every recording call with a
+    constant string name argument."""
+    for node in sf.nodes:
+        if not isinstance(node, ast.Call) or not node.args:
+            continue
+        fname = _call_name(node)
+        reg = _CALL_TO_REGISTRY.get(fname)
+        if reg is None:
+            continue
+        lit = const_str(node.args[0])
+        if lit is not None:
+            yield node.lineno, reg, lit
+
+
+@register("DL014", "span/metric names vs obs/registry.py")
+def check(ctx: AnalysisContext) -> Iterable[Finding]:
+    registries = _find_registries(ctx)
+    uses: List[Tuple[str, int, str, str]] = []
+    for sf in ctx.modules():
+        for line, reg, lit in _use_sites(sf):
+            uses.append((sf.posix, line, reg, lit))
+    if not uses and not registries:
+        return
+    used_by_reg: Dict[str, Set[str]] = {r: set() for r in _REGISTRY_NAMES}
+    for posix, line, reg, lit in uses:
+        if reg not in registries:
+            yield Finding(
+                "DL014", posix, line,
+                f"obs name literal {lit!r} but no {reg} registry in the "
+                "analyzed set (das_tpu_torch/obs/registry.py declares it)",
+            )
+            continue
+        used_by_reg[reg].add(lit)
+        reg_sf, names = registries[reg]
+        if lit not in names:
+            yield Finding(
+                "DL014", posix, line,
+                f"obs name {lit!r} is not declared in {reg} "
+                f"({reg_sf.short}) — an undeclared span/metric records "
+                "into a lane no dashboard or percentile headline reads",
+            )
+    if ctx.partial:
+        # the stale leg is only provable on the FULL set — a
+        # partial subset may not include a name's call site
+        return
+    for reg_name, (sf, names) in registries.items():
+        line = next(
+            (
+                n.lineno for n in sf.tree.body
+                if isinstance(n, ast.Assign)
+                and any(
+                    getattr(t, "id", None) == reg_name for t in n.targets
+                )
+            ),
+            1,
+        )
+        for name in names:
+            if name not in used_by_reg[reg_name]:
+                yield Finding(
+                    "DL014", sf.posix, line,
+                    f"{reg_name} declares {name!r} but no recording site "
+                    "uses it — stale entry (the instrumentation moved or "
+                    "was deleted; prune the registry with it)",
+                )

@@ -1,0 +1,170 @@
+"""DL015 — fault-injection site registry discipline.
+
+Contract: the chaos suite's coverage claim — "a seeded sweep injecting
+every FAULT_SITES entry proves chaos-parity" — is only as good as the
+registry.  An injection seam added without declaring it never gets
+swept (the schedule can't name it); a declared seam whose `maybe_fail`
+call was refactored away keeps promising coverage that no longer
+exists.  And an injection call in the WRONG place is worse than none:
+inside `das_tpu_torch/kernels/` it would land in a kernel wrapper (the
+route DL011 keeps exactly as reviewed: a CUDA tensor to its kernel or
+a raise), and inside a
+dispatch half it would put host work — a potential raise, a latency
+sleep — on the paths DL001/DL010 prove transfer-free and purely
+asynchronous.
+
+The DL013 FETCH_SITES idiom, applied to injection.  `FAULT_SITES`
+(das_tpu_torch/fault/__init__.py) declares the closed set of seam NAMES;
+every `maybe_fail("<site>")` literal anywhere in the analyzed set is
+pinned against it.  Three legs:
+
+  * an undeclared site literal fails lint — every seam stays
+    reviewable (and sweepable) in one list;
+  * a declared site with no `maybe_fail` call is a stale entry
+    (full-set runs only — a partial (--allow-partial) subset may not include the
+    caller);
+  * ANY `maybe_fail` call — declared or not — inside a module under
+    `das_tpu_torch/kernels/` or inside a DL001 dispatch-half function
+    fails: injection belongs at host-side recovery seams, never in a
+    kernel wrapper or the async dispatch path.
+
+Attribution is syntactic (bare name or attribute, the DL004 idiom):
+naming a function `maybe_fail` and passing it a string opts into this
+discipline — injection entry points must not be ambiguous.
+"""
+
+from __future__ import annotations
+
+import ast
+from typing import Iterable, List, Set, Tuple
+
+from das_tpu_torch.analysis.core import (
+    AnalysisContext,
+    Finding,
+    const_str,
+    module_assign,
+    register,
+)
+from das_tpu_torch.analysis.rules.dl001_host_sync import dispatch_functions
+
+#: call names that count as the injection entry point
+_INJECT_CALLS = frozenset(("maybe_fail",))
+
+
+def _find_registry(ctx: AnalysisContext):
+    """The (SourceFile, site names) of the FAULT_SITES declaration —
+    first declaring module wins (das_tpu_torch/fault/__init__.py in the real
+    tree; fixtures declare their own)."""
+    for sf in ctx.modules():
+        node = module_assign(sf.tree, "FAULT_SITES")
+        if isinstance(node, ast.Tuple):
+            vals = [const_str(e) for e in node.elts]
+            if all(v is not None for v in vals):
+                return sf, tuple(vals)
+    return None
+
+
+def _is_inject_call(node: ast.Call) -> bool:
+    fn = node.func
+    if isinstance(fn, ast.Name):
+        return fn.id in _INJECT_CALLS
+    if isinstance(fn, ast.Attribute):
+        return fn.attr in _INJECT_CALLS
+    return False
+
+
+def _inject_calls(tree: ast.AST) -> Iterable[Tuple[int, str]]:
+    """(line, site literal or None) for every maybe_fail call."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and _is_inject_call(node):
+            lit = const_str(node.args[0]) if node.args else None
+            yield node.lineno, lit
+
+
+def _in_kernels(sf) -> bool:
+    return "kernels" in sf.path.parts[:-1]
+
+
+@register("DL015", "fault-injection sites vs FAULT_SITES registry")
+def check(ctx: AnalysisContext) -> Iterable[Finding]:
+    registry = _find_registry(ctx)
+    used: Set[str] = set()
+    for sf in ctx.modules():
+        if "maybe_fail" not in sf.names:
+            continue
+        calls: List[Tuple[int, str]] = list(_inject_calls(sf.tree))
+        if not calls:
+            continue
+        if _in_kernels(sf):
+            for line, _lit in calls:
+                yield Finding(
+                    "DL015", sf.posix, line,
+                    "fault injection (maybe_fail) inside das_tpu_torch/kernels/ "
+                    "— the kernel wrappers' route is DL011's contract and "
+                    "must stay exactly as reviewed; inject at the "
+                    "host-side seam that CALLS the kernel instead",
+                )
+        # the dispatch-half ban: reuse DL001's root discovery so the two
+        # rules cannot disagree about what "a dispatch half" is
+        dispatch_spans = [
+            (qname, fn) for qname, fn in dispatch_functions(sf.tree)
+        ]
+        banned_lines: Set[int] = set()
+        for qname, fn in dispatch_spans:
+            for node in ast.walk(fn):
+                if isinstance(node, ast.Call) and _is_inject_call(node):
+                    banned_lines.add(node.lineno)
+                    yield Finding(
+                        "DL015", sf.posix, node.lineno,
+                        f"fault injection (maybe_fail) inside dispatch "
+                        f"half `{qname}` — dispatch stays purely "
+                        "asynchronous and raise-free (DL001/DL010); "
+                        "injected failures belong at the settle/recovery "
+                        "seams",
+                    )
+        for line, lit in calls:
+            if lit is None:
+                continue
+            if line in banned_lines:
+                # the placement ban above already reported this call;
+                # a second registry finding on the same line is noise
+                used.add(lit)
+                continue
+            if registry is None:
+                yield Finding(
+                    "DL015", sf.posix, line,
+                    "maybe_fail call but no FAULT_SITES registry in the "
+                    "analyzed set (das_tpu_torch/fault/__init__.py declares it)",
+                )
+                continue
+            used.add(lit)
+            if lit not in registry[1]:
+                yield Finding(
+                    "DL015", sf.posix, line,
+                    f"maybe_fail site {lit!r} is not declared in "
+                    f"FAULT_SITES ({registry[0].short}) — an undeclared "
+                    "seam never gets swept by the chaos suite, so its "
+                    "recovery path ships untested",
+                )
+    if registry is not None and used and not ctx.partial:
+        reg_sf, declared = registry
+        line = next(
+            (
+                n.lineno for n in reg_sf.tree.body
+                if isinstance(n, ast.Assign)
+                and any(
+                    getattr(t, "id", None) == "FAULT_SITES"
+                    for t in n.targets
+                )
+            ),
+            1,
+        )
+        for site in declared:
+            if site not in used:
+                yield Finding(
+                    "DL015", reg_sf.posix, line,
+                    f"FAULT_SITES declares {site!r} but no maybe_fail "
+                    "call injects there — stale entry (the seam moved or "
+                    "was deleted; the chaos sweep would claim coverage "
+                    "it no longer has)",
+                )

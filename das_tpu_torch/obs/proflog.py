@@ -43,7 +43,9 @@ itself (a CUDA error included) propagates untouched.
 
 `PROGRAM_SITES` maps every scope of das_tpu_torch/ that calls `instrument`,
 `record_launch` or `record_build` to its site label (pinned by
-tests/test_torch_proflog.py against the source)."""
+tests/test_torch_proflog.py against the source); `PROGRAM_INNER_SITES`
+the scopes that run a program only inside another site's (daslint
+DL016)."""
 
 from __future__ import annotations
 
@@ -68,8 +70,36 @@ PROGRAM_SITES: Dict[str, str] = {
     "native.get_lib": "scanner_build",
 }
 
+#: the scopes that run a program function only INSIDE another site's
+#: instrumented program, with that site's label (daslint DL016): the tree
+#: builders' functions run inside the "fused_tree" / "sharded_tree"
+#: programs, count_batch's lanes inside each "count_batch" round
+PROGRAM_INNER_SITES: Dict[str, str] = {
+    "fused.build_fused_tree": "fused_tree",
+    "fused.FusedExecutor.count_batch": "count_batch",
+    "fused_sharded.build_sharded_tree_fused": "sharded_tree",
+}
+
 #: ledger entry bound: past it the oldest entries drop (the recorder's ring)
 _MAX_ENTRIES = 1024
+
+#: who may mutate each ProgramLedger attribute after __init__ (daslint
+#: DL006): every one only under `with self._lock:` — the serving worker,
+#: RPC threads (coalescer_stats) and builders on any thread share the one
+#: ledger
+LOCK_DISCIPLINE = {
+    "ProgramLedger.enabled": "_lock",
+    "ProgramLedger.entries": "_lock",
+    "ProgramLedger._keys": "_lock",
+    "ProgramLedger.compiles": "_lock",
+    "ProgramLedger.compile_s": "_lock",
+    "ProgramLedger.cold_start_s": "_lock",
+    "ProgramLedger.persistent_cache_hits": "_lock",
+    "ProgramLedger.calls": "_lock",
+    "ProgramLedger.hits": "_lock",
+    "ProgramLedger.errors": "_lock",
+    "ProgramLedger.launches": "_lock",
+}
 
 
 def sig_digest(*parts) -> str:

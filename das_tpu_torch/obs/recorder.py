@@ -30,6 +30,18 @@ from typing import List, Optional, Tuple
 #: ring bound when none is configured
 DEFAULT_RING = 65536
 
+#: who may mutate each TraceRecorder attribute after __init__ (daslint
+#: DL006): every one only under `with self._lock:` (configure / reset /
+#: new_trace run on any thread; the ring append in `record` is a method
+#: call on the deque, atomic under the GIL)
+LOCK_DISCIPLINE = {
+    "TraceRecorder.enabled": "_lock",
+    "TraceRecorder.capacity": "_lock",
+    "TraceRecorder._ring": "_lock",
+    "TraceRecorder._next": "_lock",
+    "TraceRecorder._t_origin": "_lock",
+}
+
 
 class _NoopSpan:
     """THE disabled-path span: one shared instance, no state, no

@@ -33,7 +33,8 @@ A replicated value (a psum, a pmax, a gathered table the host reads) is
 one tensor on `replicated(mesh)`, the first local slab's device.
 
 `COLLECTIVE_SITES` lists the only scopes of `das_tpu_torch/parallel/`
-that move data between shards (pinned by tests/test_torch_mesh.py)."""
+that move data between shards (pinned by tests/test_torch_mesh.py), and
+`COLLECTIVE_HELPERS` the helpers here that call torch.distributed."""
 
 from __future__ import annotations
 
@@ -63,6 +64,16 @@ COLLECTIVE_SITES = (
     "sharded_tree.ShardedTreeOps._gather_table",
     "sharded_tree.ShardedTreeOps.join_tables",
     "sharded_tree.ShardedTreeOps.dedup",
+)
+
+#: the "module.qualname" scopes that call torch.distributed's collectives:
+#: the helpers below that define the mesh's collectives across processes
+#: (each stages through `_across`, counted in COLLECTIVE_STATS); no other
+#: function of the port calls a process-group collective (daslint DL009)
+COLLECTIVE_HELPERS = (
+    "mesh.all_gather",
+    "mesh.all_to_all",
+    "mesh._reduce",
 )
 
 #: default seconds a collective may wait for its peers before the run fails

@@ -95,6 +95,55 @@ ROUTE_TYPE = "type"          # type-only probe
 #: execution, one per materialization without a prefetched copy)
 FETCH_COUNTS = {"n": 0}
 
+#: the closed set of scopes allowed to copy to the host or wait for the
+#: card (daslint DL013): the outermost function, qualified by module stem
+#: (package name for __init__ modules), mapped to the tally that counts
+#: its transfers, or to None where no fetch tally counts them (reason
+#: beside each).  Adding a transfer means adding it here, under review.
+FETCH_SITES = {
+    # the fetch helpers: one count per round (per attempt when retried)
+    "fused.fetch_many": "FETCH_COUNTS",
+    "fused.fetch": "FETCH_COUNTS",
+    "fused.retried_fetch": "FETCH_COUNTS",
+    # the copies fetch_many / retried_fetch queued, and counted
+    "fused._Staged.wait": None,
+    # the serving pipeline's one fetch per settle round
+    "fused.settle_pending_iter": "FETCH_COUNTS",
+    # the whole-tree retry loop: one fetch per tree round
+    "fused.run_tree_job": "FETCH_COUNTS",
+    # execute()'s and the exact program's settle fetches
+    "fused.FusedExecutor.execute": "FETCH_COUNTS",
+    "fused.FusedExecutor.execute_exact": "FETCH_COUNTS",
+    # count_batch: one fetch per count group's round
+    "fused.FusedExecutor._run_batch_group": "FETCH_COUNTS",
+    # explain(execute=True) driving a real job to settle
+    "planner._explain_plans": "FETCH_COUNTS",
+    # star counts' device fold: one fetch per GROUP of lanes
+    "starcount._device_count_group": "FETCHES",
+    # materialization when no prefetched host copy exists: one fetch per
+    # table or batch, never on the cache-hit path
+    "compiler.materialize": "FETCH_COUNTS",
+    "tree.materialize_tables": "FETCH_COUNTS",
+    "tree._tree_entry": "FETCH_COUNTS",
+    "sharded_db.ShardedDB.materialize": "FETCH_COUNTS",
+    # the mesh's execute() settle fetch
+    "fused_sharded.ShardedFusedExecutor.execute": "FETCH_COUNTS",
+    # the getters' probe results (get_links, probe_ordered): das_tpu reads
+    # them with np.asarray, counted by neither package
+    "tensor_db._selected": None,
+    # a mesh slab's host copy for a checkpoint, not a query's fetch
+    "sharded_db.ShardedBucket.host": None,
+    # gloo staging of a cross-process collective (COLLECTIVE_STATS times it)
+    "mesh._across": None,
+    # the program ledger's first-call measurement, only with the ledger on
+    "proflog._InstrumentedProgram.__call__": None,
+    # numpy arrays on the host (ingest and restore), no card involved
+    "atom_table.build_bucket": None,
+    "delta.IncrementalCommitMixin._record_delta_incoming": None,
+    "checkpoint._restore_indexes": None,
+    "checkpoint.try_restore_sharded": None,
+}
+
 #: token capacity for index-joined terms — never materialized
 INDEX_TERM_TOKEN_CAP = 16
 

@@ -81,6 +81,27 @@ _EWMA_ALPHA = 0.25
 #: the current point.
 _HISTORY_K = 64
 
+#: who may mutate each attribute after __init__ (daslint DL006): "_lock"
+#: = only under `with self._lock:` (RPC threads race to start the worker
+#: and count rejections), "worker" = only in WORKER_METHODS, the
+#: coalescer's one worker thread (RPC threads read `stats` through
+#: snapshot(), torn reads tolerated).  New mutable state declares its
+#: owner here.
+LOCK_DISCIPLINE = {
+    "QueryCoalescer._worker": "_lock",
+    "QueryCoalescer.stats": "worker",
+    "QueryCoalescer.rejected": "_lock",
+}
+
+#: the methods that run ON the worker thread (_run and its helpers): the
+#: confinement domain of "worker" attributes.  The breaker and `history`
+#: are driven only from these methods as well.
+WORKER_METHODS = {
+    "QueryCoalescer": ("_run", "_group_batch", "_dispatch_group",
+                       "_settle_group", "_observe", "_effective_depth",
+                       "_expire", "_breaker_sync"),
+}
+
 
 class QueryCoalescer:
     def __init__(self, max_batch: int = None, pipeline_depth: int = None,

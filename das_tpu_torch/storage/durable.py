@@ -78,6 +78,29 @@ WARM_FILE = "warm.json"
 GEN_PREFIX = "gen-"
 MANIFEST_FORMAT = 1
 
+#: the modules the persist discipline covers (daslint DL017): in them
+#: every byte written flows through the PERSIST_SITES functions below (no
+#: bare `open(..., "w")`, `np.savez(path)` or `torch.save(obj, path)`),
+#: and a function that renames a file into place fsyncs it first.
+#: Matched by path suffix.
+PERSIST_SCOPES = (
+    "das_tpu_torch/storage/durable.py",
+    "das_tpu_torch/storage/checkpoint.py",
+    "das_tpu_torch/service/seed_checkpoint.py",
+)
+
+#: the closed set of functions allowed to open persist files for writing:
+#: `atomic_write`, the write-temp -> fsync -> rename helper every snapshot
+#: section and checkpoint file rides; `DeltaLog.append`, the WAL's
+#: append-fsync path; `_truncate_wal`, which cuts a torn tail; and
+#: `_publish_generation`, the generation directory's fsync and rename
+PERSIST_SITES = (
+    "atomic_write",
+    "DeltaLog.append",
+    "_truncate_wal",
+    "_publish_generation",
+)
+
 #: WAL record framing: "<III" = magic, payload length, payload CRC-32
 WAL_MAGIC = 0x5744_414C  # "WDAL"
 _WAL_HEADER = struct.Struct("<III")

@@ -3,7 +3,9 @@ chip_smoke.py imports JAX or any module of the JAX package das_tpu, nor
 msgpack, and none but the four transport modules imports grpc or protobuf,
 which the card machine lacks (pinned by an AST scan, one case per file);
 the import closure of chip_smoke.py and of tests/test_torch_gpu.py holds
-no transport module; no file reads the environment; and an entry point
+no transport module; no file reads the environment; the analyzer
+(das_tpu_torch/analysis/) imports the standard library and itself only;
+and an entry point
 left to its default device raises without a CUDA card instead of falling
 back to the CPU."""
 
@@ -194,6 +196,30 @@ def test_serving_modules_are_scanned(module):
     for name in _imports(ROOT / module):
         top = name.split(".")[0]
         assert top in ("torch", "numpy", "das_tpu_torch") + stdlib, f"{module} imports {name}"
+
+
+ANALYSIS_MODULES = sorted(
+    str(p.relative_to(ROOT)) for p in (ROOT / "das_tpu_torch" / "analysis").rglob("*.py"))
+
+
+@pytest.mark.parametrize("module", ANALYSIS_MODULES)
+def test_analysis_modules_are_scanned(module):
+    """The port's analyzer (das_tpu_torch/analysis/) is among the scanned
+    files, and it imports the standard library and itself only: no jax,
+    nothing of das_tpu, no torch, and nothing of the modules it checks."""
+    assert ROOT / module in _port_files()
+    stdlib = ("__future__", "argparse", "ast", "collections", "dataclasses", "io", "json",
+              "pathlib", "re", "sys", "tokenize", "typing")
+    for name in _imports(ROOT / module):
+        assert name.split(".")[0] in stdlib or name.startswith("das_tpu_torch.analysis"), \
+            f"{module} imports {name}"
+
+
+def test_analysis_is_a_complete_package():
+    """Seventeen rule modules, one per contract, beside the core."""
+    rules = sorted(p.name for p in (ROOT / "das_tpu_torch/analysis/rules").glob("dl*.py"))
+    assert [r[:5] for r in rules] == [f"dl{i:03d}" for i in range(1, 18)]
+    assert len(ANALYSIS_MODULES) == len(rules) + 6
 
 
 def test_default_device_raises_without_card():
