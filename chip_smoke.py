@@ -109,6 +109,26 @@ Phases, one JSON line each:
                cached tree answer across a commit on SMALL, and get_links
                of 8 genes through the device probes against MemoryDB's
                host scan of the same store, both timed;
+     entry — the entry points beside the package: (a) the 55-query
+               regression battery (scripts/regression_torch.py) on the
+               animals KB in a tensor store on the card, in the same store
+               called as the reference's script calls it (the `das` shim's
+               routed classes, `expr.matched(db, answer)`), and on 8 slabs,
+               each equal in all 56 normalized blocks to the MemoryDB
+               battery of this run and to data/samples/regression_expected.txt
+               (das_tpu's output); (b) the `das` shim (compat_torch/) on
+               phase kb's store: grounded, Not and fan-out-star queries
+               built from its routed classes and called as
+               `expr.matched(das.db, answer)`, each answer set equal to
+               `query_answer`'s, no host route, probe launches rising and
+               anti-join launches rising for Not, p50 ms beside the
+               facade's; (c) the CLIs in-process: load_das_torch.py of a
+               small canonical file (SMALL, the native scanner, built and
+               timed first) into a store on the card, with --checkpoint;
+               dump_das_torch.py of that checkpoint, on the host tables,
+               byte-equal to convert/dump.py's dump of the generator's own
+               build of SMALL; and dump_trace_torch.py of a few served
+               queries, its JSON's span names obs/registry.py's;
   9. sharded — the sharded store (parallel/): phase kb's configuration
                and seed built again and dealt over 8 slabs on the card,
                DistributedAtomSpace(backend="sharded"); 16 grounded, 16
@@ -1993,6 +2013,219 @@ def phase_tree(args, das, data, genes, host, large, smi):
                         "host_scan_p50_ms": _p50(scan_ms), "device_ms": device_ms,
                         "host_scan_ms": scan_ms},
           "launches": total, "phase_s": time.perf_counter() - t_phase})
+    return total
+
+
+# ---- phase entry -------------------------------------------------------------------
+
+
+def shim_family_queries(data, host, args, pm):
+    """Phase entry's shim families on phase kb's store, each query as a
+    pair (built from the `das` shim's routed classes, built from the
+    port's own): grounded and Not over 8 genes with answers, fan-out stars
+    over 4 processes."""
+    from das_tpu_torch.query import ast
+
+    def grounded(m, g, negate):
+        third = m.Link("Interacts", [m.Node("Gene", g), m.Variable("V2")], True)
+        return m.And([m.Link("Member", [m.Node("Gene", g), m.Variable("V3")], True),
+                      m.Link("Member", [m.Variable("V2"), m.Variable("V3")], True),
+                      m.Not(third) if negate else third])
+
+    def fanout(m, p):
+        return m.And([m.Link("Member", [m.Variable("V1"), m.Node("BiologicalProcess", p)], True),
+                      m.Link("Member", [m.Variable("V1"), m.Variable("P2")], True),
+                      m.Link("Interacts", [m.Variable("V1"), m.Variable("V2")], True)])
+
+    gene_names = [data.nodes[host.fin.hex_of_row[r]].name for r in host.gene_rows.tolist()]
+    genes = pick_genes(host, gene_names, args.seed + 41, n=8, n_nonempty=8)
+    procs = [data.nodes[host.fin.hex_of_row[r]].name for r in star_rows(args, host)[1][:4]]
+    return {
+        "grounded": [(grounded(pm, g, False), grounded(ast, g, False)) for g in genes],
+        "not": [(grounded(pm, g, True), grounded(ast, g, True)) for g in genes],
+        "fanout_star": [(fanout(pm, p), fanout(ast, p)) for p in procs],
+    }
+
+
+def phase_entry(args, das, data, host, smi):
+    """The entry points beside the package on the card (the docstring's
+    phase entry).  Counters zeroed just before each driven part, read just
+    after; returns the phase's launches per kernel."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    from das_tpu_torch import obs
+    from das_tpu_torch.convert import dump as dump_mod
+    from das_tpu_torch.ingest import native
+    from das_tpu_torch.kernels import LAUNCH_COUNTS, reset_launch_counts
+    from das_tpu_torch.models.bio import write_bio_canonical
+    from das_tpu_torch.obs.registry import SPAN_NAMES
+    from das_tpu_torch.query import compiler
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    for sub in ("scripts", "compat_torch"):
+        if os.path.join(root, sub) not in sys.path:
+            sys.path.insert(0, os.path.join(root, sub))
+    import dump_das_torch
+    import dump_trace_torch
+    import load_das_torch
+    import regression_torch
+    from das.pattern_matcher import pattern_matcher as pm
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(TPU_KERNELS, 0)
+
+    def counted(fn):
+        """fn() with the launch counts zeroed just before, read just after."""
+        reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: LAUNCH_COUNTS[k] for k in TPU_KERNELS}
+        for k in TPU_KERNELS:
+            total[k] += got[k]
+        return out, got
+
+    # -- (a) the battery ----------------------------------------------------------------
+    expected = regression_torch.EXPECTED.read_text()
+    memory = regression_torch.run(regression_torch.animals_das("memory"))
+    if regression_torch.differing_blocks(memory, expected):
+        raise AssertionError("the MemoryDB battery differs from das_tpu's expected output")
+    tensor_das = regression_torch.animals_das("tensor", DEVICE)
+    runs = {
+        "tensor": lambda: regression_torch.run(tensor_das),
+        "tensor_shim": lambda: regression_torch.run(tensor_das, pm),
+        "sharded": lambda: regression_torch.run(
+            regression_torch.animals_das("sharded", DEVICE, shards=8)),
+    }
+    battery = {}
+    for name, fn in runs.items():
+        t0 = time.perf_counter()
+        out, got = counted(fn)
+        wall = time.perf_counter() - t0
+        blocks = len(regression_torch.normalize_regression_output(out))
+        bad = (regression_torch.differing_blocks(out, expected),
+               regression_torch.differing_blocks(out, memory))
+        if blocks != regression_torch.N_BLOCKS or any(bad):
+            raise AssertionError(f"battery on {name}: {blocks} blocks, differing {bad}")
+        if not got["probe"]:
+            raise AssertionError(f"battery on {name} launched no probe")
+        battery[name] = {"blocks": blocks, "s": wall, "launches": got}
+
+    # -- (b) the shim's routed classes on phase kb's store ------------------------------
+    families = shim_family_queries(data, host, args, pm)
+    shim = {}
+    for fam, pairs in families.items():
+        facade_ms, shim_ms, want, got_sets = [], [], [], []
+        shim_launches = dict.fromkeys(TPU_KERNELS, 0)
+        routes = {}
+
+        def facade(q):
+            t0 = time.perf_counter()
+            _m, ans = das.query_answer(q)
+            facade_ms.append((time.perf_counter() - t0) * 1e3)
+            want.append({frozenset(a.mapping.items()) for a in ans.assignments})
+
+        def routed(sq):
+            """One shim call, its launches and routes counted apart from
+            the facade's."""
+            launches0, routes0 = dict(LAUNCH_COUNTS), dict(compiler.ROUTE_COUNTS)
+            ans = pm.PatternMatchingAnswer()
+            t0 = time.perf_counter()
+            sq.matched(das.db, ans)
+            shim_ms.append((time.perf_counter() - t0) * 1e3)
+            got_sets.append({frozenset(a.mapping.items()) for a in ans.assignments})
+            for k in TPU_KERNELS:
+                shim_launches[k] += LAUNCH_COUNTS[k] - launches0[k]
+            for k, v in compiler.ROUTE_COUNTS.items():
+                if v - routes0.get(k, 0):
+                    routes[k] = routes.get(k, 0) + v - routes0.get(k, 0)
+
+        def family():
+            # each side goes first on every other query, so neither times
+            # the other's warm-up
+            for i, (sq, q) in enumerate(pairs):
+                if i % 2:
+                    routed(sq)
+                    facade(q)
+                else:
+                    facade(q)
+                    routed(sq)
+
+        counted(family)
+        if got_sets != want:
+            raise AssertionError(f"shim family {fam}: answers differ from query_answer's")
+        if not any(want):
+            raise AssertionError(f"shim family {fam}: no query has an answer")
+        if (routes.get("host") or not shim_launches["probe"]
+                or (fam == "not" and not shim_launches["anti_join"])):
+            raise AssertionError(f"shim family {fam} did not run on the card: {routes} "
+                                 f"{shim_launches}")
+        shim[fam] = {"queries": len(pairs), "answers": [len(a) for a in want],
+                     "shim_p50_ms": _p50(shim_ms), "facade_p50_ms": _p50(facade_ms),
+                     "shim_ms": shim_ms, "facade_ms": facade_ms,
+                     "routes": routes, "launches": shim_launches}
+
+    # -- (c) the CLIs -------------------------------------------------------------------
+    work = tempfile.mkdtemp(prefix="das_entry_")
+    kb_file = os.path.join(work, "small.metta")
+    write_bio_canonical(kb_file, seed=args.seed, **SMALL)
+    # the scanner's build, on a fresh checkout a g++ run, is timed apart from
+    # the load (phase ingest then finds it built)
+    prebuilt = native.library_path().exists()
+    t0 = time.perf_counter()
+    native.build()
+    scanner_build_s = time.perf_counter() - t0
+    ckpt = os.path.join(work, "small_ckpt")
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        if load_das_torch.run(["--knowledge-base", kb_file, "--canonical",
+                               "--checkpoint", ckpt, "--device", DEVICE]) != 0:
+            raise AssertionError("load_das_torch.py failed")
+        load_s = time.perf_counter() - t0
+        # the dump reads the host tables alone: the checkpoint that the load
+        # wrote (the native scanner's columnar store) against the generator's
+        # own build of the same KB, with no file and no scanner
+        dump_das_torch.main(["dump", "--checkpoint", ckpt, os.path.join(work, "cli", "small")])
+    want_data, _ = build_kb(SMALL, args.seed)
+    dump_mod.dump_store(want_data, os.path.join(work, "small"))
+    names = sorted(f.split(".", 1)[1] for f in os.listdir(os.path.join(work, "cli")))
+    for coll in names:
+        with open(os.path.join(work, "cli", f"small.{coll}"), "rb") as a, \
+                open(os.path.join(work, f"small.{coll}"), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"dump_das_torch.py's {coll} differs from the "
+                                     f"generator's dump")
+    if "links_2" not in names or want_data.count_atoms()[1] == 0:
+        raise AssertionError(f"the small canonical store dumped nothing: {names}")
+    trace_path = os.path.join(work, "trace.json")
+    try:
+        with contextlib.redirect_stdout(text):
+            _out, trace_launches = counted(lambda: dump_trace_torch.main(
+                ["-o", trace_path, "--clients", "4", "--scale", "0.05", "--device", DEVICE]))
+    finally:
+        obs.configure(enabled=False)
+        obs.proflog.configure(enabled=False)
+        obs.reset()
+        obs.proflog.reset()
+    with open(trace_path) as f:
+        spans = {e["name"] for e in json.load(f)["traceEvents"]} - {"process_name", "thread_name"}
+    need = {"serve.submit", "serve.plan", "serve.dispatch", "serve.settle", "serve.answer",
+            "exec.dispatch", "exec.materialize", "cache.hit", "commit.delta", "prof.compile"}
+    if not spans <= set(SPAN_NAMES) or not need <= spans:
+        raise AssertionError(f"dump_trace_torch.py's spans: {sorted(spans)}")
+    emit({"phase": "entry", "card": smi, "battery": battery, "shim": shim,
+          "cli": {"canonical_atoms": list(want_data.count_atoms()),
+                  "scanner_build_s": scanner_build_s, "scanner_prebuilt": prebuilt,
+                  "load_s": load_s,
+                  "dump_collections": names, "trace_spans": sorted(spans),
+                  "trace_launches": trace_launches},
+          "launches": total, "phase_s": time.perf_counter() - t_phase})
+    shutil.rmtree(work, ignore_errors=True)
     return total
 
 
@@ -4806,8 +5039,9 @@ def phase_ingest(args, data, base, genes, host, smi):
             n_expr = write_bio_canonical(path, seed=args.seed, **cfg)
             generate_s = time.perf_counter() - t0
         file_mb = os.path.getsize(path) / 1e6
-        # the scanner's build, on a fresh checkout a g++ run, is timed
-        # apart from the load
+        # the scanner's build is timed apart from the load; in a whole run
+        # phase entry has built it already (`scanner_prebuilt` true), and
+        # its own `cli.scanner_build_s` holds the g++ run
         prebuilt = (native.BUILD_DIR / f"libdas_native_{native._digest()}.so").exists()
         t0 = time.perf_counter()
         native.build()
@@ -5084,6 +5318,7 @@ def main(argv=None) -> int:
     counted = phase_count_batch(args, das, data, genes, host)
     api = phase_api(args, das, data, genes, host, families, smi)
     tree = phase_tree(args, das, data, genes, host, (ldas, ldata, lgenes), smi)
+    entry = phase_entry(args, das, data, host, smi)
     sharded = phase_sharded(args, das, data, genes, host, families, (ldas, ldata, lgenes), smi)
     # the ontology KB is built on the host while the multiprocess children
     # build theirs
@@ -5102,7 +5337,8 @@ def main(argv=None) -> int:
                             {"build_s": build_s, "finalize_upload_s": upload_s}, committed)
     ingested = phase_ingest(args, data, base, genes, host, smi)
     for name in TPU_KERNELS:
-        launches[name] += (counted[name] + api[name] + tree[name] + sharded[name] + multi[name]
+        launches[name] += (counted[name] + api[name] + tree[name] + entry[name] + sharded[name]
+                           + multi[name]
                            + onto[name] + programs[name] + commit[name] + mined[name]
                            + served[name] + durable[name] + ingested[name])
 

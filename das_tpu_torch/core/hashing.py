@@ -22,7 +22,7 @@ host-side hex map detects any collision at ingest time.
 from __future__ import annotations
 
 from hashlib import md5
-from typing import List, Sequence, Union
+from typing import Iterable, List, Sequence, Union
 
 import numpy as np
 
@@ -73,6 +73,34 @@ class ExpressionHasher:
     terminal_hash = staticmethod(terminal_hash)
     composite_hash = staticmethod(composite_hash)
     expression_hash = staticmethod(expression_hash)
+
+
+class StringExpressionHasher:
+    """Debug variant producing READABLE handles instead of digests
+    (reference expression_hasher.py:38-60: `<Concept: human>` — the handle
+    style the reference StubDB exposes).  Never used on the device path."""
+
+    @staticmethod
+    def _compute_hash(text: str) -> str:
+        return str(text)
+
+    @staticmethod
+    def named_type_hash(name: str) -> str:
+        return f"<Type: {name}>"
+
+    @staticmethod
+    def terminal_hash(named_type: str, terminal_name: str) -> str:
+        return f"<{named_type}: {terminal_name}>"
+
+    @staticmethod
+    def expression_hash(named_type_hash: str, elements: List[str]) -> str:
+        return f"<{named_type_hash}: {elements}>"
+
+    @staticmethod
+    def composite_hash(hash_list: List[str]) -> str:
+        if len(hash_list) == 1:
+            return hash_list[0]
+        return f"{hash_list}"
 
 
 # ---------------------------------------------------------------------------
@@ -131,3 +159,21 @@ def hex_to_i64_bulk(hex_digests) -> np.ndarray:
     out[out == I64_PAD_MAX] -= 1
     return out
 
+
+def i64_hash_str(text: str) -> np.int64:
+    return hex_to_i64(compute_hash(text))
+
+
+def hex_list_to_i64(hex_digests: Iterable[str]) -> np.ndarray:
+    return np.array([hex_to_i64(h) for h in hex_digests], dtype=np.int64)
+
+
+def splitmix64(x: np.ndarray) -> np.ndarray:
+    """The splitmix64 finalizer over uint64 views, wrapping mod 2^64 as
+    numpy's uint64 arithmetic does."""
+    x = x.astype(np.uint64, copy=True)
+    x += np.uint64(0x9E3779B97F4A7C15)
+    x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    x = x ^ (x >> np.uint64(31))
+    return x

@@ -76,6 +76,7 @@ from das_tpu_torch.query.fused import (
     program_model_bytes,
     run_tree_job,
     same_positive_order,
+    settle_pending,
     settle_pending_iter,
     tree_model_bytes,
 )
@@ -551,10 +552,21 @@ class ShardedFusedExecutor:
         return dispatch_pending(self.results, self._exec_job, plans_lists, count_only,
                                 cache_only=cache_only)
 
+    def settle_many(self, pending) -> List[Optional[ShardedFusedResult]]:
+        """The list form of settle_many_iter (query/fused.py
+        settle_pending): every entry's result, None for a decline."""
+        return settle_pending(self.results, pending)
+
     def settle_many_iter(self, pending):
         """The serving pipeline's second half (query/fused.py
         settle_pending_iter): one host fetch a retry round for the batch."""
         return settle_pending_iter(self.results, pending)
+
+    def execute_many(self, plans_lists,
+                     count_only: bool = False) -> List[Optional[ShardedFusedResult]]:
+        """Every query of the batch dispatched, then one host fetch a retry
+        round for all of them."""
+        return self.settle_many(self.dispatch_many(plans_lists, count_only))
 
     def tree_exec_job(self, pos_sites, neg_plans=None):
         """One whole-tree mesh job (query/fused.py prepare_tree_job with the

@@ -436,10 +436,17 @@ def query_on_device(db: TensorDB, query: LogicalExpression,
     return matched
 
 
-def dispatch(db, query: LogicalExpression, answer: PatternMatchingAnswer) -> bool:
+def dispatch(db, query: LogicalExpression, answer: PatternMatchingAnswer,
+             host=None) -> bool:
     """Route one query: the mesh for a sharded store, the device path for
     a TensorDB, the host algebra otherwise — and for queries outside the
-    compiled language or whose join outgrows max_result_capacity."""
+    compiled language or whose join outgrows max_result_capacity.
+
+    `host` is the host-algebra fallback, a callable (db, answer) -> bool.
+    Without one, a query that advertises `host_matched` (the `das` shim's
+    routed classes, whose own `matched` calls this function) falls back to
+    that, so a declined or overflowed device attempt never re-enters
+    `matched`; any other query falls back to its `matched`."""
     matched = None
     sharded = is_sharded(db)
     if sharded or isinstance(db, TensorDB):
@@ -458,7 +465,8 @@ def dispatch(db, query: LogicalExpression, answer: PatternMatchingAnswer) -> boo
             matched = None
     if matched is None:
         ROUTE_COUNTS["host"] += 1
-        matched = query.matched(db, answer)
+        fallback = host or getattr(query, "host_matched", None) or query.matched
+        matched = fallback(db, answer)
     return matched
 
 

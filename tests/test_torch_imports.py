@@ -3,7 +3,10 @@ chip_smoke.py imports JAX or any module of the JAX package das_tpu, nor
 msgpack, and none but the four transport modules imports grpc or protobuf,
 which the card machine lacks (pinned by an AST scan, one case per file);
 the import closure of chip_smoke.py and of tests/test_torch_gpu.py holds
-no transport module; no file reads the environment; the analyzer
+no transport module; no file reads the environment; the entry points beside the
+package (the `das` shim compat_torch/, scripts/*_torch.py and
+examples/*_torch.py) import none of those either, read no environment,
+and reach no transport module; the analyzer
 (das_tpu_torch/analysis/) imports the standard library and itself only;
 and an entry point
 left to its default device raises without a CUDA card instead of falling
@@ -296,3 +299,30 @@ def test_sharded_default_device_raises_without_card():
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DistributedAtomSpace(backend="sharded")
+
+
+ENTRY_FILES = sorted((ROOT / "compat_torch").rglob("*.py")) + sorted(
+    (ROOT / "scripts").glob("*_torch.py")) + sorted((ROOT / "examples").glob("*_torch.py"))
+
+
+def test_entry_files_are_all_there():
+    rels = {str(p.relative_to(ROOT)) for p in ENTRY_FILES}
+    assert len([r for r in rels if r.startswith("compat_torch/das/")]) == 12
+    assert {"scripts/regression_torch.py", "scripts/load_das_torch.py",
+            "scripts/dump_das_torch.py", "scripts/dump_trace_torch.py",
+            "examples/query_das_torch.py", "examples/query_flybase_torch.py",
+            "examples/pattern_miner_torch.py", "examples/load_knowledge_base_torch.py"} <= rels
+
+
+@pytest.mark.parametrize("path", ENTRY_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_entry_file_stands_alone(path):
+    """No JAX, nothing of das_tpu, no msgpack or grpc, no environment read;
+    and what importing it can load of the port holds no transport module."""
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in FORBIDDEN + ("msgpack", "grpc", "google"), f"{path.name} imports {name}"
+    assert not list(_env_reads(path)), f"{path.name} reads the environment"
+    files, foreign = _closure(path)
+    rels = {str(f.relative_to(ROOT)) for f in files}
+    assert not rels & set(TRANSPORT), sorted(rels & set(TRANSPORT))
+    assert not foreign & {"grpc", "google", "msgpack", "jax", "das_tpu"}, sorted(foreign)
