@@ -128,7 +128,10 @@ Phases, one JSON line each:
                dump_das_torch.py of that checkpoint, on the host tables,
                byte-equal to convert/dump.py's dump of the generator's own
                build of SMALL; and dump_trace_torch.py of a few served
-               queries, its JSON's span names obs/registry.py's;
+               queries: one file, the profiler's trace with the recorder's
+               spans merged onto its clock (every launch inside a
+               serve.dispatch starts after it), the spans' names
+               obs/registry.py's;
   9. sharded — the sharded store (parallel/): phase kb's configuration
                and seed built again and dealt over 8 slabs on the card,
                DistributedAtomSpace(backend="sharded"); 16 grounded, 16
@@ -2047,6 +2050,60 @@ def shim_family_queries(data, host, args, pm):
     }
 
 
+def split_merged_trace(events):
+    """(the profiler's events, the recorder's events) of a Chrome trace
+    that obs/torchprof.py `merge_recorder` wrote: the recorder's lanes
+    are the integer pids from OBS_PID_BASE up (the profiler's pids are
+    process ids, device indices or strings)."""
+    from das_tpu_torch.obs.torchprof import OBS_PID_BASE
+
+    def recorder(e):
+        pid = e.get("pid")
+        return isinstance(pid, int) and pid >= OBS_PID_BASE
+
+    return ([e for e in events if not recorder(e)], [e for e in events if recorder(e)])
+
+
+def check_one_clock(events):
+    """The merged trace's clock holds: every kernel or copy launched from
+    inside a `serve.dispatch` span starts on the card after that span's
+    start, those launches come from one host thread (the worker's), and
+    every launch of that thread lies inside one of its `serve.dispatch`
+    or `serve.settle` spans (a clock off by more than a span's length
+    puts launches outside them).  Returns the launches checked and the
+    nearest start's lead in us."""
+    xs = [e for e in events if e.get("ph") == "X"]
+    launch = {(e.get("args") or {}).get("correlation"): e for e in xs
+              if e.get("cat") == "cuda_runtime"}
+    dispatch = [e for e in xs if e.get("name") == "serve.dispatch"]
+    worker = [e for e in xs if e.get("name") in ("serve.dispatch", "serve.settle")]
+
+    def within(t, spans):
+        return [s for s in spans if s["ts"] <= t <= s["ts"] + s["dur"]]
+
+    calls, inside, tids, lead = [], 0, set(), None
+    for k in (e for e in xs if e.get("cat") in ("kernel", "gpu_memcpy")):
+        call = launch.get((k.get("args") or {}).get("correlation"))
+        if call is None:
+            continue
+        calls.append(call)
+        for d in within(call["ts"], dispatch):
+            if k["ts"] < d["ts"]:
+                raise AssertionError(f"merged trace: {k['name']} starts at {k['ts']} us, "
+                                     f"before its serve.dispatch at {d['ts']} us")
+            inside += 1
+            tids.add(call["tid"])
+            lead = k["ts"] - d["ts"] if lead is None else min(lead, k["ts"] - d["ts"])
+    if inside == 0 or len(tids) != 1:
+        raise AssertionError(f"merged trace: {inside} launches inside serve.dispatch spans, "
+                             f"from threads {sorted(tids)}")
+    outside = [c for c in calls if c["tid"] in tids and not within(c["ts"], worker)]
+    if outside:
+        raise AssertionError(f"merged trace: {len(outside)} of the worker's launches lie "
+                             f"outside its dispatch and settle spans")
+    return {"dispatch_launches": inside, "nearest_lead_us": lead}
+
+
 def phase_entry(args, das, data, host, smi):
     """The entry points beside the package on the card (the docstring's
     phase entry).  Counters zeroed just before each driven part, read just
@@ -2213,9 +2270,17 @@ def phase_entry(args, das, data, host, smi):
         obs.reset()
         obs.proflog.reset()
     with open(trace_path) as f:
-        spans = {e["name"] for e in json.load(f)["traceEvents"]} - {"process_name", "thread_name"}
+        events = json.load(f)["traceEvents"]
+    # on the card the file is the profiler's trace with the recorder's
+    # events merged in: the span names are the recorder's lanes'
+    clock = None
+    if DEVICE != "cpu":
+        clock = check_one_clock(events)
+        events = split_merged_trace(events)[1]
+    spans = {e["name"] for e in events} - {"process_name", "thread_name"}
     need = {"serve.submit", "serve.plan", "serve.dispatch", "serve.settle", "serve.answer",
-            "exec.dispatch", "exec.materialize", "cache.hit", "commit.delta", "prof.compile"}
+            "exec.dispatch", "exec.materialize", "exec.format", "serve.idle", "cache.hit",
+            "commit.delta", "prof.compile"}
     if not spans <= set(SPAN_NAMES) or not need <= spans:
         raise AssertionError(f"dump_trace_torch.py's spans: {sorted(spans)}")
     emit({"phase": "entry", "card": smi, "battery": battery, "shim": shim,
@@ -2223,7 +2288,7 @@ def phase_entry(args, das, data, host, smi):
                   "scanner_build_s": scanner_build_s, "scanner_prebuilt": prebuilt,
                   "load_s": load_s,
                   "dump_collections": names, "trace_spans": sorted(spans),
-                  "trace_launches": trace_launches},
+                  "trace_launches": trace_launches, "trace_clock": clock},
           "launches": total, "phase_s": time.perf_counter() - t_phase})
     shutil.rmtree(work, ignore_errors=True)
     return total
@@ -3222,7 +3287,10 @@ def phase_programs(args, das, data, genes, host, families, large, smi):
         path = torchprof.last_trace_path()
         trace_bytes = os.path.getsize(path)
         with open(path) as f:
-            names = {str(e.get("name", "")) for e in json.load(f).get("traceEvents", [])}
+            # the profiler's own events: the recorder's, merged in beside
+            # them, would answer for exec.dispatch with its own span
+            names = {str(e.get("name", "")) for e in
+                     split_merged_trace(json.load(f).get("traceEvents", []))[0]}
         in_trace = {k: sorted(n for n in names if re.search(rf"\b{p}\w*kernel", n))[:3]
                     for k, p in KERNEL_PREFIX.items()}
         absent = [k for k, v in in_trace.items() if not v]

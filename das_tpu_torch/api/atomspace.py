@@ -27,7 +27,7 @@ it writes the first generation and logs every commit.
 
 Serving (das_tpu_torch/service/): the coalescer drives
 `query_many_dispatch(..., cache_only=)` and `settle_iter`; planning a
-batch is the `serve.plan` span of obs/.
+batch is the `serve.plan` span of obs/, formatting an answer `exec.format`.
 
 Bulk loads (ingest/pipeline.py): `load_knowledge_base` parses `.metta`
 and `.scm` files; `load_canonical_knowledge_base` reads converter-format
@@ -43,6 +43,7 @@ import os
 from enum import Enum, auto
 from typing import Dict, List, Optional, Tuple, Union
 
+from das_tpu_torch import obs
 from das_tpu_torch.core.config import DasConfig
 from das_tpu_torch.core.exceptions import BreakerOpenError
 from das_tpu_torch.core.schema import UNORDERED_LINK_TYPES, WILDCARD
@@ -111,8 +112,6 @@ class _QueryManyJob:
         # a mesh store takes the sharded executor's dispatch/settle halves
         self.sharded = is_sharded(das.db)
         if (self.sharded or isinstance(das.db, TensorDB)) and queries:
-            from das_tpu_torch import obs
-
             with obs.span("serve.plan", queries=len(queries)) as sp:
                 for i, q in enumerate(queries):
                     plans = query_compiler.plan_query(das.db, q)
@@ -507,24 +506,31 @@ class DistributedAtomSpace:
         return _QueryManyJob(self, queries, output_format, cache_only=cache_only)
 
     def _format_answer(self, matched, answer: PatternMatchingAnswer, output_format) -> str:
-        tag_not = ""
-        mapping = ""
-        if matched:
-            if answer.negation:
-                tag_not = "NOT "
-            if output_format == QueryOutputFormat.HANDLE:
-                mapping = str(answer.assignments)
-            elif output_format == QueryOutputFormat.ATOM_INFO:
-                mapping = str([self._render_assignment(a, deep=False)
-                               for a in answer.assignments])
-            elif output_format == QueryOutputFormat.JSON:
-                mapping = json.dumps(
-                    [self._render_assignment(a, deep=True) for a in answer.assignments],
-                    sort_keys=False, indent=4,
-                )
-            else:
-                raise ValueError(f"Invalid output format: '{output_format}'")
-        return f"{tag_not}{mapping}"
+        """The answer string of every query path; the `exec.format` span
+        when tracing is on."""
+        sp = obs.NOOP_SPAN
+        if obs.enabled():
+            sp = obs.span("exec.format", answers=len(answer.assignments) if matched else 0,
+                          format=getattr(output_format, "name", str(output_format)))
+        with sp:
+            tag_not = ""
+            mapping = ""
+            if matched:
+                if answer.negation:
+                    tag_not = "NOT "
+                if output_format == QueryOutputFormat.HANDLE:
+                    mapping = str(answer.assignments)
+                elif output_format == QueryOutputFormat.ATOM_INFO:
+                    mapping = str([self._render_assignment(a, deep=False)
+                                   for a in answer.assignments])
+                elif output_format == QueryOutputFormat.JSON:
+                    mapping = json.dumps(
+                        [self._render_assignment(a, deep=True) for a in answer.assignments],
+                        sort_keys=False, indent=4,
+                    )
+                else:
+                    raise ValueError(f"Invalid output format: '{output_format}'")
+            return f"{tag_not}{mapping}"
 
     def explain(self, query: LogicalExpression, execute: bool = False,
                 compile: bool = False) -> Dict:

@@ -24,10 +24,13 @@ SPAN_NAMES = (
     #: span: per-group query planning (api/atomspace.py _QueryManyJob)
     "serve.plan",
     #: span: per-group enqueue under the tenant lock; attrs: group width,
-    #: speculative flag, effective depth, dispatch EWMA
+    #: speculative flag, effective depth, dispatch EWMA, and the members'
+    #: summed submit -> dispatch wait (queue_s) over those with a mark
+    #: (queued)
     "serve.dispatch",
     #: span: per-group streamed settle; attrs: streamed and fallback
-    #: counts, settle rtt
+    #: counts, settle rtt, the worker thread's CPU seconds over the span
+    #: (cpu_s)
     "serve.settle",
     #: instant: one query's future resolved; closes the trace id opened
     #: at serve.submit
@@ -76,6 +79,13 @@ SPAN_NAMES = (
     #: instant: a torn WAL tail truncated at the last valid frame
     #: (storage/durable.py _truncate_wal)
     "dur.wal_truncate",
+    #: span: the coalescer worker blocked for work with nothing in flight
+    #: or grouped (service/coalesce.py _drain's blocking get), nested in
+    #: serve.drain
+    "serve.idle",
+    #: span: one answer's assignments rendered to the answer string
+    #: (api/atomspace.py _format_answer); attrs: answers, format
+    "exec.format",
 )
 
 #: monotone counters (obs/metrics.py COUNTERS is built from this)

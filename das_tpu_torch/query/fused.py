@@ -137,6 +137,8 @@ FETCH_SITES = {
     "mesh._across": None,
     # the program ledger's first-call measurement, only with the ledger on
     "proflog._InstrumentedProgram.__call__": None,
+    # the profiler trace's clock marker, once when a profile starts on a card
+    "torchprof._launch_marker": None,
     # numpy arrays on the host (ingest and restore), no card involved
     "atom_table.build_bucket": None,
     "delta.IncrementalCommitMixin._record_delta_incoming": None,

@@ -93,6 +93,10 @@ LOCK_DISCIPLINE = {
     "QueryCoalescer.rejected": "_lock",
 }
 
+#: each coalescer's worker thread is named WORKER_THREAD-<the coalescer's
+#: id in hex>, so two coalescers' spans stay apart by thread
+WORKER_THREAD = "das-coalescer"
+
 #: the methods that run ON the worker thread (_run and its helpers): the
 #: confinement domain of "worker" attributes.  The breaker and `history`
 #: are driven only from these methods as well.
@@ -258,18 +262,29 @@ class QueryCoalescer:
             return
         with self._lock:
             if self._worker is None or not self._worker.is_alive():
-                self._worker = threading.Thread(target=self._run, daemon=True)
+                # named, so a trace shows the worker as a track of its own
+                # and readers pick its spans by thread
+                self._worker = threading.Thread(
+                    target=self._run, daemon=True,
+                    name=f"{WORKER_THREAD}-{id(self):x}",
+                )
                 self._worker.start()
 
     def _drain(self, block: bool, limit: int = None) -> List[Tuple]:
         """One batch up to `limit` (None = the configured ceiling):
         blocking waits for the first item (idle coalescer); non-blocking
-        returns [] when nothing is queued (pipeline top-up)."""
+        returns [] when nothing is queued (pipeline top-up).  Only the
+        blocking wait is the `serve.idle` span: the worker has nothing in
+        flight or grouped and waits for a submit."""
         limit = self.max_batch if limit is None else limit
-        try:
-            batch = [self._queue.get(block=block)]
-        except queue.Empty:
-            return []
+        if block:
+            with obs.span("serve.idle"):
+                batch = [self._queue.get(block=True)]
+        else:
+            try:
+                batch = [self._queue.get_nowait()]
+            except queue.Empty:
+                return []
         while len(batch) < limit:
             try:
                 batch.append(self._queue.get_nowait())
@@ -485,11 +500,15 @@ class QueryCoalescer:
             gid = obs.new_trace()
             now = time.perf_counter()
             marks = [self._mark_of(item) for item in group]
+            # the members' submit -> dispatch waits; a query submitted
+            # before tracing was switched on has no mark and no wait
+            queue_s, queued = 0.0, 0
             for m in marks:
                 if m is not None:
-                    obs.histogram("serve.queue_ms").observe(
-                        (now - m[1]) * 1e3
-                    )
+                    wait = now - m[1]
+                    queue_s += wait
+                    queued += 1
+                    obs.histogram("serve.queue_ms").observe(wait * 1e3)
             obs.set_context(
                 lane=getattr(tenant, "name", None), group=gid
             )
@@ -504,6 +523,7 @@ class QueryCoalescer:
                     getattr(tenant.das, "db", None), "delta_version", None
                 ),
                 traces=[m[0] for m in marks if m is not None],
+                queue_s=queue_s, queued=queued,
             )
         t0 = time.perf_counter()
         job = None
@@ -641,10 +661,15 @@ class QueryCoalescer:
         # instead of falling back to per-query device work
         degraded = entry[5] if len(entry) > 5 else False
         sp = obs.NOOP_SPAN
+        cpu0 = None
         if obs.enabled():
             obs.set_context(lane=getattr(tenant, "name", None), group=gid)
             sp = obs.span("serve.settle", trace=gid, queries=len(group),
                           degraded=degraded)
+            # the worker thread's CPU clock over the span: wall time
+            # minus cpu_s is time the worker waited (for the GIL, or
+            # blocked in the fetch)
+            cpu0 = time.thread_time()
         t_settle0 = time.perf_counter()
         streamed = 0
         delivered_last = False
@@ -743,6 +768,8 @@ class QueryCoalescer:
                 else:
                     self.breaker.record_success()
                 self._breaker_sync()
+            if cpu0 is not None:
+                sp.set(cpu_s=time.thread_time() - cpu0)
         if obs.enabled():
             obs.histogram("serve.settle_ms").observe(
                 (time.perf_counter() - t_settle0) * 1e3

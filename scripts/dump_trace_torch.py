@@ -12,6 +12,11 @@ Two modes:
     again, then write the trace: submit -> drain -> group -> plan ->
     dispatch -> settle -> answer spans with their attributes, one lane per
     tenant and worker, and a "compile" lane with the ledger's first calls.
+    With the store on a card the demo runs under `torch.profiler`, and the
+    output is one file on one clock: the profiler's trace with the spans
+    merged in, shifted onto its clock by a marker kernel
+    (obs/torchprof.py `merge_recorder`), so the worker's spans lie over
+    the CUDA stream that their launches fed.
 
         python scripts/dump_trace_torch.py -o das_trace.json --device cpu
 
@@ -25,9 +30,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import sys
+import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent.parent
 if str(ROOT) not in sys.path:
@@ -41,9 +49,11 @@ def dump_current(path: str) -> str:
     return obs.dump_chrome_trace(obs.events(), path)
 
 
-def demo_workload(n_clients: int, scale: float, device=None) -> None:
+def demo_workload(n_clients: int, scale: float, device=None, profile_dir=None):
     """Serve the demo workload with tracing on; the trace stays in the
-    process recorder."""
+    process recorder.  With the store on a card and a `profile_dir`, the
+    workload runs under torch.profiler and the merged trace file's path
+    is returned; else None."""
     from das_tpu_torch import obs
     from das_tpu_torch.api.atomspace import DistributedAtomSpace, QueryOutputFormat
     from das_tpu_torch.models.bio import build_bio_atomspace
@@ -65,7 +75,9 @@ def demo_workload(n_clients: int, scale: float, device=None) -> None:
         n_interactions=max(128, int(2000 * scale)),
     )
     das = DistributedAtomSpace(database_name="trace-demo", data=data, device=device)
-    obs.maybe_start_trace(das.config)
+    on_card = profile_dir is not None and das.db.device.type == "cuda"
+    if on_card:
+        obs.maybe_start_trace(SimpleNamespace(profiler_trace_dir=profile_dir))
     tenant = _Tenant("trace-demo", das)
     coal = QueryCoalescer()
 
@@ -97,7 +109,9 @@ def demo_workload(n_clients: int, scale: float, device=None) -> None:
                         '(Member "GENE:TRACE" "GO:TRACE")')
     serve([workload[1]] * 2)
     time.sleep(0.1)  # let the worker's settle span land in the ring
-    obs.maybe_stop_trace()
+    if on_card and obs.maybe_stop_trace():
+        return obs.torchprof.last_trace_path()
+    return None
 
 
 def main(argv=None) -> int:
@@ -110,9 +124,16 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device of the store (default: the CUDA card)")
     args = ap.parse_args(argv)
+    merged = None
     if not args.self_only:
-        demo_workload(args.clients, args.scale, args.device)
-    path = dump_current(args.out)
+        profile_dir = tempfile.mkdtemp(prefix="das_trace_")
+        try:
+            merged = demo_workload(args.clients, args.scale, args.device, profile_dir)
+            if merged is not None:
+                shutil.move(merged, args.out)
+        finally:
+            shutil.rmtree(profile_dir, ignore_errors=True)
+    path = args.out if merged is not None else dump_current(args.out)
     with open(path) as f:
         n = len(json.load(f)["traceEvents"])
     print(f"wrote {n} trace events to {path}; open it in ui.perfetto.dev")

@@ -1025,3 +1025,37 @@ def test_ledger_measures_peak_bytes_on_card():
     finally:
         proflog.reset()
         proflog.configure(enabled=False)
+
+
+@pytest.mark.gpu
+def test_dump_trace_is_one_file_on_one_clock(tmp_path):
+    """scripts/dump_trace_torch.py on the card writes one Chrome trace: the
+    profiler's CUDA stream with the recorder's spans merged onto its clock.
+    Every kernel launched inside a `serve.dispatch` span starts after that
+    span's start, and every launch of the worker's host thread lies inside
+    one of its dispatch or settle spans (chip_smoke.py `check_one_clock`,
+    which phase entry runs on the same file)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the clock marker is a kernel")
+    import importlib.util
+    import json
+    from pathlib import Path
+
+    import chip_smoke
+    from das_tpu_torch import obs
+
+    path = Path(__file__).resolve().parents[1] / "scripts" / "dump_trace_torch.py"
+    spec = importlib.util.spec_from_file_location("_dump_trace_torch_gpu", path)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    out = tmp_path / "trace.json"
+    try:
+        assert script.main(["-o", str(out), "--clients", "8", "--scale", "0.05"]) == 0
+    finally:
+        obs.configure(enabled=False)
+        obs.proflog.configure(enabled=False)
+        obs.reset()
+        obs.proflog.reset()
+    events = json.loads(out.read_text())["traceEvents"]
+    clock = chip_smoke.check_one_clock(events)
+    assert clock["dispatch_launches"] > 0 and clock["nearest_lead_us"] >= 0

@@ -33,8 +33,10 @@ def _clean():
 
 def test_registry_equals_das_tpu_minus_prof():
     """The port's registry equals das_tpu's; from the program ledger's port
-    on that includes its prof.* names, which were the difference before."""
-    assert registry.SPAN_NAMES == jx_registry.SPAN_NAMES
+    on that includes its prof.* names, which were the difference before.
+    The port's spans go further by the serving worker's own accounting:
+    its blocking waits for work and the formatting of each answer."""
+    assert registry.SPAN_NAMES == jx_registry.SPAN_NAMES + ("serve.idle", "exec.format")
     assert registry.COUNTER_NAMES == jx_registry.COUNTER_NAMES
     assert registry.HISTOGRAM_NAMES == jx_registry.HISTOGRAM_NAMES
     assert set(metrics.COUNTERS) == set(registry.COUNTER_NAMES)
@@ -176,13 +178,25 @@ def test_traced_round_covers_the_lifecycle():
     tx.add('(Inheritance "lion" "mammal")')
     das.commit_transaction(tx)
     das.query_many(qs)  # the first cache access after the commit invalidates
-    names = {e[0] for e in obs.events()}
-    for name in ("serve.submit", "serve.drain", "serve.group", "serve.plan",
+    events = obs.events()
+    names = {e[0] for e in events}
+    for name in ("serve.submit", "serve.drain", "serve.idle", "serve.group", "serve.plan",
                  "serve.dispatch", "serve.settle", "serve.answer", "exec.dispatch",
-                 "exec.settle_fetch", "exec.materialize", "cache.miss",
+                 "exec.settle_fetch", "exec.materialize", "exec.format", "cache.miss",
                  "planner.observe", "commit.delta", "cache.invalidate"):
         assert name in names, name
     assert names <= set(registry.SPAN_NAMES)
+    # the worker's accounting: its thread is named, every group's dispatch
+    # carries its members' queue wait and every settle its CPU seconds
+    (worker,) = {e[7] for e in events if e[0] in ("serve.idle", "serve.dispatch",
+                                                  "serve.settle")}
+    assert worker.startswith("das-coalescer-")
+    dispatches = [e[8] for e in events if e[0] == "serve.dispatch"]
+    assert sum(a["queued"] for a in dispatches) == len(futs)
+    assert all(a["queue_s"] >= 0.0 for a in dispatches)
+    assert all(0.0 <= e[8]["cpu_s"] <= e[3] + 1e-3 for e in events if e[0] == "serve.settle")
+    formats = [e[8] for e in events if e[0] == "exec.format"]
+    assert {a["format"] for a in formats} == {"HANDLE"} and all(a["answers"] >= 0 for a in formats)
     assert obs.counter("serve.answers").value == len(futs)
     assert obs.histogram("serve.answer_ms").total == len(futs)
     lanes = {e["args"]["name"] for e in obs.chrome_trace(obs.events())["traceEvents"]
